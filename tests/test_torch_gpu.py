@@ -1,0 +1,110 @@
+"""Card-only checks of the port's kernels and device path (gpu marker).
+
+These skip without a CUDA card. The file imports nothing of JAX, so it runs
+on a machine that has only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+K1 must return 524800; K2 must match its plain twin on the same card
+tensors within TestPallasZ2's rtol 2e-3 / atol 0.05 with identical argmax,
+and two runs must be bitwise equal. The device fold, fit and H-test are
+held against the same functions run on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from crimp_tpu_torch.ops import anchored, search, toafit, z2_grid
+from crimp_tpu_torch.models import profiles
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _pulsed(n: int, seed: int = 42) -> np.ndarray:
+    rng = np.random.RandomState(seed)
+    t = rng.uniform(0.0, 20000.0, 3 * n)
+    keep = rng.uniform(0.0, 1.3, t.size) < 1.0 + 0.3 * np.cos(2 * np.pi * 0.25 * t)
+    t = np.sort(t[keep][:n])
+    return t - (t[0] + t[-1]) / 2
+
+
+@pytest.mark.gpu
+class TestKernels:
+    def test_k1_probe(self, cuda_device):
+        z2_grid.reset_launches()
+        x = torch.arange(1024, dtype=torch.float32, device=cuda_device).reshape(8, 128)
+        assert float(z2_grid.probe(x)) == 524800.0
+        assert z2_grid.LAUNCHES["probe"] == 1
+
+    @pytest.mark.parametrize("nharm", [2, 3, 5, 20])
+    def test_k2_matches_twin_bitwise_reruns(self, cuda_device, nharm):
+        n = 20011
+        t = torch.as_tensor(_pulsed(n), device=cuda_device)
+        hf = torch.tensor([-5e-11, 0.0, 5e-11], dtype=torch.float64, device=cuda_device)
+        got = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, nharm)
+        again = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, nharm)
+        ref = z2_grid.z2_tile_sums_reference(t, 0.2495, 3e-6, hf, 2, nharm)
+        assert torch.equal(got, again)
+        z = ((got.double() ** 2).sum(0).sum(2) * (2.0 / n)).cpu().numpy()
+        z_ref = ((ref.double() ** 2).sum(0).sum(2) * (2.0 / n)).cpu().numpy()
+        np.testing.assert_allclose(z.reshape(3, -1), z_ref.reshape(3, -1), rtol=2e-3, atol=0.05)
+        for row in range(3):
+            assert int(np.argmax(z[row])) == int(np.argmax(z_ref[row]))
+
+    def test_search_on_card_matches_cpu_twin(self, cuda_device):
+        t = _pulsed(5000)
+        freqs = np.linspace(0.2495, 0.2505, 300)
+        gpu = search.PeriodSearch(t, freqs, 2, device=cuda_device).twod_ztest([-11.0, -10.0])[0]
+        cpu = search.PeriodSearch(t, freqs, 2, device="cpu").twod_ztest([-11.0, -10.0])[0]
+        np.testing.assert_allclose(gpu[:, 2], cpu[:, 2], rtol=2e-3, atol=0.05)
+
+
+@pytest.mark.gpu
+class TestDevicePath:
+    def test_fold_fit_htest_match_cpu(self, cuda_device):
+        rng = np.random.RandomState(3)
+        par = {"PEPOCH": 58359.55765869704, "F0": 0.14328254547263483, "F1": -9.746993965547238e-15}
+        segs = [np.sort(rng.uniform(lo, lo + 0.3, 4000)) for lo in (58144.0, 58145.0, 58146.0)]
+        gpu, _ = anchored.fold_segments(par, segs, device=cuda_device)
+        cpu, _ = anchored.fold_segments(par, segs, device="cpu")
+        for g, c in zip(gpu, cpu):
+            assert np.max(np.abs((g - c + 0.5) % 1.0 - 0.5)) < 1e-12
+        tpl = profiles.ProfileParams(
+            norm=torch.tensor(10.0, dtype=torch.float64), amp=torch.tensor([3.0, 1.0], dtype=torch.float64),
+            loc=torch.tensor([0.2, -0.4], dtype=torch.float64), wid=torch.zeros(2, dtype=torch.float64),
+            ph_shift=torch.tensor(0.0, dtype=torch.float64), amp_shift=torch.tensor(1.0, dtype=torch.float64))
+        phases, masks = toafit.pad_segments(cpu)
+        cfg = toafit.ToAFitConfig(ph_shift_res=500)
+        fit_g = toafit.fit_toas_batch("fourier", tpl, phases, masks, [300.0] * 3, cfg, device=cuda_device)
+        fit_c = toafit.fit_toas_batch("fourier", tpl, phases, masks, [300.0] * 3, cfg, device="cpu")
+        np.testing.assert_allclose(fit_g["phShift"].cpu().numpy(), fit_c["phShift"].numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(fit_g["redChi2"].cpu().numpy(), fit_c["redChi2"].numpy(), rtol=1e-6)
+        sec = (phases - 0.5) * 1e4
+        freqs = np.array([0.1432, 0.1433, 0.1434])
+        h_g = search.h_power_segments(sec, masks, freqs, device=cuda_device).cpu().numpy()
+        h_c = search.h_power_segments(sec, masks, freqs, device="cpu").numpy()
+        np.testing.assert_allclose(h_g, h_c, rtol=1e-4)
+
+    def test_readvaryparam_fit_matches_cpu(self, cuda_device):
+        rng = np.random.RandomState(5)
+        x = rng.uniform(0, 1, 3000)
+        x = x[rng.uniform(0, 14.5, x.size) < 10.0 + 3.0 * np.cos(2 * np.pi * x + 0.2) + 1.0][:1500]
+        tpl = profiles.ProfileParams(
+            norm=torch.tensor(10.0, dtype=torch.float64), amp=torch.tensor([3.0], dtype=torch.float64),
+            loc=torch.tensor([0.2], dtype=torch.float64), wid=torch.zeros(1, dtype=torch.float64),
+            ph_shift=torch.tensor(0.0, dtype=torch.float64), amp_shift=torch.tensor(1.0, dtype=torch.float64))
+        cfg = toafit.ToAFitConfig(ph_shift_res=60, n_brute=16, refine_iters=12, nm_iters=40, err_chunk=4,
+                                  free_idx=(0, 1), free_lo=(2.0, 0.1), free_hi=(50.0, 10.0), n_free=2)
+        args = ("fourier", tpl, x[None], np.ones((1, x.size), bool), [x.size / 10.0], cfg)
+        g = toafit.fit_toas_batch(*args, device=cuda_device)
+        c = toafit.fit_toas_batch(*args, device="cpu")
+        np.testing.assert_allclose(g["phShift"].cpu().numpy(), c["phShift"].numpy(), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(g["theta_best"].cpu().numpy(), c["theta_best"].numpy(), rtol=1e-5)
