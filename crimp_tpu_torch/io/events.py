@@ -3,7 +3,7 @@
 Port of ``crimp_tpu/io/events.py`` without pandas: the TIME/PI table is a
 dict of numpy columns (``time_energy_df["TIME"]`` keeps the reference's
 name). Events are read through the pure-Python FITS layer; the native mmap
-column reader and ``add_phase_column`` come in later slices.
+column reader comes in a later slice.
 
 - essential header keywords (TELESCOP/INSTRUME/TSTART/TSTOP/TIMESYS/MJDREF
   from MJDREFI+MJDREFF or MJDREF, plus optional mission keywords),
@@ -11,7 +11,8 @@ column reader and ``add_phase_column`` come in later slices.
 - the TIME/PI table with per-telescope PI -> keV conversion
   (NICER/Swift x0.01; NuSTAR x0.04+1.6; XMM x0.001; IXPE x0.04; GBM raw PHA),
 - inclusive energy/time filters,
-- NICER FPM_SEL condensation (per-timestamp selected/on detector counts).
+- NICER FPM_SEL condensation (per-timestamp selected/on detector counts),
+- a folded PHASE column appended to the event file (``add_phase_column``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 
 from crimp_tpu_torch.io import fitsio
+from crimp_tpu_torch.utils.device import resolve_device
 from crimp_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -173,3 +175,36 @@ class EventFile:
             "TOTFPMON": fpm_on.reshape(len(time_mjd), -1).sum(axis=1),
         }
         return hdu.data, condensed
+
+    def add_phase_column(self, timMod: str, nonBaryEvtFile: str | None = None, device=None) -> dict:
+        """Fold the EVENTS TIME column on ``device`` (default cuda) and append
+        a PHASE column in place.
+
+        Optionally mirrors the same PHASE column into a non-barycentered
+        sibling file (for phase-resolved spectroscopy workflows).
+        """
+        from crimp_tpu_torch.ops.fold import fold_phases
+
+        device = resolve_device(device)
+        keywords = self.read_header_keywords()
+        fits = self._open()
+        events = fits["EVENTS"]
+        time_mjd = (
+            np.asarray(events.column("TIME"), dtype=np.float64) / 86400.0
+            + keywords["MJDREF"]
+        )
+        _, folded = fold_phases(time_mjd, timMod, device=device)
+        folded = np.asarray(folded)
+        fitsio.add_table_column(events, "PHASE", folded, tform="D")
+        fitsio.write_fits(self.evtFile, fits)
+        self._fits = None  # invalidate cache after rewrite
+
+        if nonBaryEvtFile is not None:
+            other = fitsio.read_fits(nonBaryEvtFile)
+            fitsio.add_table_column(other["EVENTS"], "PHASE", folded, tform="D")
+            fitsio.write_fits(nonBaryEvtFile, other)
+        return keywords
+
+
+# Reference-named alias (eventfile.py:33).
+EvtFileOps = EventFile

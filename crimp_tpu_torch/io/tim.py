@@ -5,7 +5,8 @@ line is ``template frequency toa_mjd toa_err_us site [-flag value ...]``
 with one leading space, ``C`` comments, and trailing flag pairs (``-i``,
 ``-pn``). Tables are dicts of numpy columns: ``frequency``, ``pulse_ToA``
 and ``pulse_ToA_err`` are numeric (int64 when every cell is an integer),
-``pn`` is int64; a flag a line lacks reads as None.
+``pn`` is int64; a flag a line lacks reads as None. ``PulseToAs`` wraps
+such a table for time filtering, reset and writing.
 """
 
 from __future__ import annotations
@@ -83,3 +84,42 @@ def write_tim(path_stem: str, table: dict, clobber: bool = False) -> str:
             fields = [str(v) for v in row if v is not None and v == v]
             fh.write(" " + " ".join(fields) + "\n")
     return path
+
+
+def select_rows(table: dict, rows) -> dict:
+    """A new table of copies of the given rows (mask, indices or a slice)."""
+    return {name: np.array(np.asarray(col)[rows]) for name, col in table.items()}
+
+
+class PulseToAs:
+    """Column-table wrapper for .tim content: reset / time filter / write."""
+
+    def __init__(self, pulsetoas: dict):
+        self._original = select_rows(pulsetoas, slice(None))
+        self.df = select_rows(pulsetoas, slice(None))
+
+    def reset(self) -> "PulseToAs":
+        self.df = select_rows(self._original, slice(None))
+        return self
+
+    def time_filter(
+        self,
+        t_start: float | None = None,
+        t_end: float | None = None,
+        inplace: bool = True,
+    ):
+        lo = -np.inf if t_start is None else t_start
+        hi = np.inf if t_end is None else t_end
+        toa = np.asarray(self.df["pulse_ToA"], dtype=float)
+        filtered = select_rows(self.df, (toa >= lo) & (toa <= hi))
+        if inplace:
+            self.df = filtered
+            return self
+        return filtered
+
+    def writetimfile(self, timfilename: str, clobber: bool = False) -> None:
+        write_tim(timfilename, self.df, clobber=clobber)
+
+
+# Reference-named alias.
+readtimfile = read_tim

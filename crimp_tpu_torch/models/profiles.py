@@ -80,6 +80,24 @@ def from_template(template: dict, ph_shift: float = 0.0, amp_shift: float = 1.0)
     return kind, params
 
 
+def to_theta(kind: str, params: ProfileParams) -> dict:
+    """Flat reference-style theta dict (for file writers and reports)."""
+    theta = {
+        "norm": float(params.norm),
+        "phShift": float(params.ph_shift),
+        "ampShift": float(params.amp_shift),
+    }
+    amp, loc, wid = (getattr(params, n).detach().cpu().tolist() for n in ("amp", "loc", "wid"))
+    for j in range(params.n_comp):
+        theta[f"amp_{j + 1}"] = amp[j]
+        if kind == FOURIER:
+            theta[f"ph_{j + 1}"] = loc[j]
+        else:
+            theta[f"cen_{j + 1}"] = loc[j]
+            theta[f"wid_{j + 1}"] = wid[j]
+    return theta
+
+
 def fourier_curve(params: ProfileParams, x: torch.Tensor) -> torch.Tensor:
     """Fourier-series rate curve at phases x (cycles)."""
     total = None

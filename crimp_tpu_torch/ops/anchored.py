@@ -15,7 +15,8 @@ absolute phases in f64 leaves no margin. The split:
    folded = frac( const[a] + Horner_b(d) + G(d; a) + W(d; a) )
 
 ``fold_segments`` ships without the delta-fold engine, which matches the
-JAX default (its exact branch).
+JAX default (its exact branch). ``fold_chunked`` folds an arbitrary MJD
+array through per-chunk anchors (the template pipeline, ``fold_phases``).
 """
 
 from __future__ import annotations
@@ -275,3 +276,31 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None):
         torch.as_tensor(anchor_idx, device=dev),
     ).cpu().numpy()
     return list(np.split(folded, np.cumsum(sizes)[:-1])), t_ref
+
+
+def fold_chunked(times_mjd, timMod, chunk_days: float = 30.0, device=None):
+    """Fold an arbitrary MJD array via per-chunk anchors (host orchestration).
+
+    Splits the time span into <= chunk_days chunks, anchors each at its
+    midpoint, and runs the anchored fold on ``device`` (default cuda).
+    Returns cycle-folded phases in [0,1) with the input's ordering.
+    """
+    tm = timing.resolve(timMod)
+    t = np.atleast_1d(np.asarray(times_mjd, dtype=np.float64))
+    if t.size == 0:
+        return np.zeros(0)
+    dev = resolve_device(device)
+    lo = t.min()
+    idx = np.minimum(
+        ((t - lo) / chunk_days).astype(np.int64),
+        max(int(np.ceil((t.max() - lo) / chunk_days)) - 1, 0),
+    )
+    # Anchor at each chunk's midpoint (any in-chunk point works).
+    n_chunks = int(idx.max()) + 1
+    t_ref = lo + (np.arange(n_chunks) + 0.5) * chunk_days
+    am = prepare_anchors(tm, t_ref).to(dev)
+    delta = anchor_deltas(t, t_ref, idx)
+    folded = anchored_fold(
+        am, torch.as_tensor(delta, device=dev), torch.as_tensor(idx, device=dev)
+    ).cpu().numpy()
+    return folded.reshape(np.shape(times_mjd))

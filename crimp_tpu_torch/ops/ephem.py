@@ -1,8 +1,11 @@
-"""Spin ephemerides on the host: F(t), Fdot(t), integer-rotation anchors.
+"""Spin ephemerides: F(t), Fdot(t), and integer-rotation anchor times.
 
-Port of the host twins in ``crimp_tpu/ops/ephem.py`` (``spin_frequency_host``,
-``integer_rotation_host``): exact f64 / longdouble numpy, vectorized over a
-batch of anchor times. The device versions wait for a later slice.
+Port of ``crimp_tpu/ops/ephem.py``: the torch f64 ``spin_frequency`` and
+``integer_rotation`` (a fixed-iteration, convergence-masked Newton solve
+over a whole batch of times), the host-friendly ``ephem_at`` and
+``ephem_integer_rotation``, and the host twins ``spin_frequency_host`` and
+``integer_rotation_host`` (exact f64 / longdouble numpy), which the ToA
+anchoring uses, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -10,12 +13,87 @@ from __future__ import annotations
 from math import factorial
 
 import numpy as np
+import torch
 
+from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
+from crimp_tpu_torch.ops import fasttrig
+from crimp_tpu_torch.ops.fold import phase_no_waves
+from crimp_tpu_torch.utils.device import resolve_device
 
 SECONDS_PER_DAY = 86400.0
 
 _INV_FACT = np.array([1.0 / factorial(n) for n in range(N_FREQ_TERMS)])
+
+
+def spin_frequency(tm: TimingParams, time_mjd: torch.Tensor):
+    """(freq, freqdot) at time_mjd from Taylor + glitch terms (torch f64;
+    broadcasts over leading batch axes of the fields like ``ops.fold``)."""
+    dt = (time_mjd - tm.pepoch[..., None]) * SECONDS_PER_DAY
+
+    # freq = sum_{n=0..12} F_n/n! dt^n ; freqdot = sum_{n=1..12} F_n/(n-1)! dt^(n-1)
+    freq = torch.zeros_like(dt)
+    for n in range(N_FREQ_TERMS - 1, -1, -1):
+        freq = freq * dt + (tm.f[..., n] * float(_INV_FACT[n]))[..., None]
+    fdot = torch.zeros_like(dt)
+    for n in range(N_FREQ_TERMS - 1, 0, -1):
+        fdot = fdot * dt + (tm.f[..., n] * float(_INV_FACT[n - 1]))[..., None]
+
+    for g in range(tm.n_glitch):
+        glep, glf0, glf1, glf2, glf0d, gltd = (
+            getattr(tm, name)[..., g, None]
+            for name in ("glep", "glf0", "glf1", "glf2", "glf0d", "gltd")
+        )
+        after = time_mjd >= glep
+        dt_days = torch.where(after, time_mjd - glep, 0.0)
+        dt_sec = dt_days * SECONDS_PER_DAY
+        # GLTD = 0 means "no recovery term": guard the exp argument and the
+        # 1/GLTD factor.
+        safe_gltd = torch.where(gltd == 0.0, 1.0, gltd)
+        decay = torch.where(gltd == 0.0, 0.0, torch.exp(-dt_days / safe_gltd))
+        dfreq = glf0 + glf1 * dt_sec + 0.5 * glf2 * dt_sec**2 + glf0d * decay
+        dfdot = glf1 + glf2 * dt_sec - (glf0d / (safe_gltd * SECONDS_PER_DAY)) * decay
+        freq = freq + torch.where(after, dfreq, 0.0)
+        fdot = fdot + torch.where(after, dfdot, 0.0)
+    return freq, fdot
+
+
+def integer_rotation(tm: TimingParams, time_mjd: torch.Tensor, tol_phase: float = 1e-10,
+                     max_iter: int = 10) -> dict:
+    """Nearest earlier integer-rotation epochs for a batch of MJDs (torch f64).
+
+    Newton-iterates t <- t - (phi(t) - floor(phi(t0)))/f(t)/86400 for
+    ``max_iter`` steps with a per-element convergence mask; waves are
+    excluded from the phase. Absolute f64 phases limit it to ~1e-10 cycles
+    at 1e6-cycle magnitudes: ``integer_rotation_host`` is the exact twin.
+    """
+    target = torch.floor(phase_no_waves(tm, time_mjd))
+    t = time_mjd
+    for _ in range(max_iter):
+        err = phase_no_waves(tm, t) - target
+        freq, _ = spin_frequency(tm, t)
+        t = torch.where(torch.abs(err) < tol_phase, t, t - (err / freq) / SECONDS_PER_DAY)
+    freq, fdot = spin_frequency(tm, t)
+    ph = phase_no_waves(tm, t)
+    return {
+        "Tmjd_intRotation": t,
+        "freq_intRotation": freq,
+        "freqdot_intRotation": fdot,
+        "ph_intRotation": ph,
+        "phase_residual_from_integer": fasttrig.centered_frac(ph),
+    }
+
+
+def ephem_at(Tmjd, timMod, device=None) -> dict:
+    """F, Fdot at one or more MJDs (reference: ephemTmjd.py:19), computed on
+    ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    tm = timing.resolve(timMod).to(dev)
+    arr = torch.as_tensor(np.atleast_1d(np.asarray(Tmjd, dtype=np.float64)), device=dev)
+    freq, fdot = spin_frequency(tm, arr)
+    squeeze = np.isscalar(Tmjd) or np.shape(Tmjd) == ()
+    to_out = lambda x: x.cpu().numpy()[0] if squeeze else x.cpu().numpy()
+    return {"Tmjd": Tmjd, "freqAtTmjd": to_out(freq), "freqdotAtTmjd": to_out(fdot)}
 
 
 def spin_frequency_host(tm: TimingParams, time_mjd: np.ndarray):
@@ -79,3 +157,28 @@ def integer_rotation_host(tm: TimingParams, time_mjd: np.ndarray, tol_phase: flo
         "ph_intRotation": ph,
         "phase_residual_from_integer": ph - np.round(ph),
     }
+
+
+def ephem_integer_rotation(Tmjd, timMod, printOutput: bool = False, tol_phase: float = 1e-10,
+                           max_iter: int = 10) -> dict:
+    """Integer-rotation ephemerides (reference: ephemIntegerRotation.py:25),
+    solved by the exact host twin, as in the JAX package."""
+    tm = timing.resolve(timMod)
+    arr = np.atleast_1d(np.asarray(Tmjd, dtype=np.float64))
+    out = integer_rotation_host(tm, arr, tol_phase=tol_phase, max_iter=max_iter)
+    squeeze = np.isscalar(Tmjd) or np.shape(Tmjd) == ()
+    result = {key: (np.asarray(val)[0] if squeeze else np.asarray(val)) for key, val in out.items()}
+    if printOutput:
+        print(
+            f"Input Tmjd = {Tmjd} days."
+            f"\n Earliest Tmjd with integer number of rotations = {result['Tmjd_intRotation']}."
+            f" Corresponding frequency = {result['freq_intRotation']}."
+            f" Corresponding phase = {result['ph_intRotation']}"
+            f"\n Phase residual from integer = {result['phase_residual_from_integer']}"
+        )
+    return result
+
+
+# Reference-named aliases.
+ephemTmjd = ephem_at
+ephemIntegerRotation = ephem_integer_rotation

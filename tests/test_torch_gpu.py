@@ -7,9 +7,13 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 K1 must return 524800; K2 must match its plain twin on the same card
 tensors within TestPallasZ2's rtol 2e-3 / atol 0.05 with identical argmax,
-and two runs must be bitwise equal. The device fold, fit and H-test are
-held against the same functions run on the CPU.
+and two runs must be bitwise equal. The device fold, fit and H-test, the
+template fit (chi2 within 1e-6 relative, parameters within 1e-6) and the
+MCMC fed the same draws (chain and log-probs within rtol 1e-10) are held
+against the same functions run on the CPU.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from crimp_tpu_torch.ops import anchored, search, toafit, z2_grid
 from crimp_tpu_torch.models import profiles
 
 torch.set_num_threads(2)
+
+DATA = pathlib.Path(__file__).parent / "data"
 
 
 @pytest.fixture
@@ -108,3 +114,58 @@ class TestDevicePath:
         c = toafit.fit_toas_batch(*args, device="cpu")
         np.testing.assert_allclose(g["phShift"].cpu().numpy(), c["phShift"].numpy(), atol=1e-6, rtol=0)
         np.testing.assert_allclose(g["theta_best"].cpu().numpy(), c["theta_best"].numpy(), rtol=1e-5)
+
+
+@pytest.mark.gpu
+class TestWorkedExampleOnCard:
+    def test_template_fit_matches_cpu(self, cuda_device):
+        from crimp_tpu_torch.pipelines.pulseprofile import PulseProfileFromEventFile
+
+        fits, par = str(DATA / "1e2259_ni1020600110.fits"), str(DATA / "1e2259.par")
+        got, want = (
+            PulseProfileFromEventFile(fits, par, eneLow=1.0, eneHigh=5.0, nbrBins=70, device=dev)
+            .fitpulseprofile(ppmodel="fourier", nbrComp=6)[0]
+            for dev in (cuda_device, "cpu")
+        )
+        assert got["dof"] == want["dof"] == 57
+        np.testing.assert_allclose(got["chi2"], want["chi2"], rtol=1e-6)
+        for key in want:
+            if key.startswith(("norm", "amp_", "ph_")):
+                assert abs(got[key] - want[key]) < 1e-6, key
+
+    @staticmethod
+    def _f0_f1_problem(dev):
+        from crimp_tpu_torch.io.yamlcfg import Prior
+        from crimp_tpu_torch.pipelines import fit_toas
+
+        par = {"PEPOCH": {"value": 58300.0, "flag": 0}, "F0": {"value": 0.15, "flag": 1},
+               "F1": {"value": -1e-13, "flag": 1}}
+        rng = np.random.RandomState(4)
+        x = np.sort(rng.uniform(58100.0, 58500.0, 40))
+        y, yerr = rng.normal(0.0, 7.5e-6, 40), np.full(40, 7.5e-6)
+        prior = Prior({"F0": (-1e-8, 1e-8), "F1": (-1e-15, 1e-15)}, {})
+        p0 = rng.uniform(-1, 1, (32, 2)) * np.array([1e-8, 1e-15])
+        fn, data = fit_toas.make_logprob_parts(par, ["F0", "F1"], prior, x, y, yerr, device=dev)
+        return fn, data, torch.as_tensor(p0, device=dev)
+
+    def test_mcmc_with_fed_draws_matches_cpu(self, cuda_device):
+        from crimp_tpu_torch.ops import mcmc
+
+        draws = mcmc.ensemble_draws(300, 32, seed=5, device="cpu")
+        out = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            fn, data, p0 = self._f0_f1_problem(dev)
+            fed = mcmc.Draws(*(d.to(dev) for d in draws))
+            out[dev.type] = [t.cpu().numpy() for t in mcmc.ensemble_sample_draws(fn, p0, fed, data=data)]
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=0)
+        np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-10, atol=0)
+
+    def test_graph_replay_equals_eager(self, cuda_device):
+        from crimp_tpu_torch.ops import mcmc
+
+        fn, data, p0 = self._f0_f1_problem(cuda_device)
+        draws = mcmc.ensemble_draws(250, 32, seed=6, device=cuda_device)  # 2 blocks + 50 steps
+        eager = mcmc.ensemble_sample_draws(fn, p0, draws, data=data)
+        graphed = mcmc.ensemble_sample_draws(fn, p0, draws, data=data, graph_steps=100)
+        assert torch.equal(eager[0], graphed[0]) and torch.equal(eager[1], graphed[1])
+        assert len(torch.unique(graphed[0])) > 100
