@@ -2,9 +2,11 @@
 
 The JAX package ``crimp_tpu`` stays the reference; this package mirrors its
 layout module for module and never imports it (nor JAX). Plain tensor code
-is PyTorch in explicit float64; the uniform-grid Z^2 tile kernel is
-hand-written CUDA C++ for ``sm_90a`` (``csrc/z2_grid.cu``), built with
-``nvcc`` on first use and bound with ``ctypes`` (``ops/z2_grid.py``).
+is PyTorch in explicit float64; the uniform-grid Z^2 tile kernel and the
+general exact-phase Z^2 kernel are hand-written CUDA C++ for ``sm_90a``
+(``csrc/z2_grid.cu``, ``csrc/z2_general.cu``), built with ``nvcc`` on
+first use and bound with ``ctypes`` (``ops/z2_grid.py``,
+``ops/z2_general.py``).
 
 Entry points take ``device=None``, which means ``cuda``; with no card they
 raise (``utils.device.resolve_device``). Pass ``device="cpu"`` to run the

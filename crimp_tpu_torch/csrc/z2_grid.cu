@@ -6,45 +6,62 @@
 //                          failure from a kernel failure.
 //   - z2_tile_kernel    <- _make_kernel / _tile_chunk_sums (pallas_z2.py:71-133)
 //     + z2_reduce_splits   and the f64 row precompute of its host wrapper
-//                          (pallas_z2.py:164-226).
+//                          (pallas_z2.py:164-226), extended to the search cube
+//                          of crimp_tpu/ops/search.py:618-705.
 //
-// What K2 computes, per (fdot row i, trial tile, trial j_lo in the tile):
-//   phase(t) = [ cfrac(f_tile*t) + cfrac(0.5*fdot_i*t^2) ] + j_lo*cfrac(df*t)
+// What K2 computes, per (fddot row l, fdot row i, trial tile, trial j_lo):
+//   phase(t) = [(cfrac(f_tile*t) + cfrac(0.5*fdot_i*t^2)) + cfrac(fdd_l/6*t^3)]
+//              + j_lo*cfrac(df*t)
 // with each f64 product reduced by the floor-based centered fraction and
-// cast to f32, the two rows added in f32, the f32 phase reduced again, the
-// fixed polynomial sin/cos pair (ops/fasttrig.py coefficients) and the
-// Chebyshev recurrence to nharm harmonics; C_k, S_k are summed over events.
+// cast to f32, the rows added in f32 in that association (search.py:687),
+// the f32 phase reduced again, a sin/cos pair (the fixed polynomial of
+// ops/fasttrig.py, or sincosf(2*pi*frac) on the same f32 argument) and the
+// Chebyshev recurrence to nharm harmonics; C_k, S_k are the sums over events
+// of w_e*cos_k, w_e*sin_k (w_e = 1 when no weights are given).
 // f_tile = f0 + tile*(T*df), T = 256.
 //
 // What bounds it on this card: f32 arithmetic. Each (trial, event) pair
 // costs about 26 + 6*nharm FLOPs (FMA = 2; see z2_grid.flops_per_pair),
-// while the bytes are the 8-byte event times, read once per block: at the
-// north-star shape (1e5 trials x 8.4e5 events, nharm 2) that is ~3.2e12
-// FLOPs against ~7 MB, far on the compute side of the 67 TFLOP/s f32 /
-// 3.35 TB/s ridge.
+// while the bytes are the 8-byte event times (and 4-byte weights), read once
+// per block: at the north-star shape (1e5 trials x 8.4e5 events, nharm 2)
+// that is ~3.2e12 FLOPs against ~7 MB, far on the compute side of the
+// 67 TFLOP/s f32 / 3.35 TB/s ridge.
 //
 // Design, against that bound:
 //   - The TPU kernel carried C and S across a sequential grid axis in VMEM.
 //     Here each thread owns one trial and keeps its 2*nharm running sums and
 //     2*nharm per-chunk sums in registers (nharm <= 20: at most 80 floats);
 //     nharm is a template parameter so the arrays stay in registers.
-//   - One block per (tile, fdot, event split). The block stages one chunk of
-//     1024 events in shared memory: each thread computes the f64 rows for a
-//     stride of events (Hopper has real f64, so the TILE_CHUNK HBM rows the
-//     TPU needed are gone), then every thread sweeps the chunk, reading the
-//     (base, b) pair as one broadcast float2 load. The f64 row work is
-//     ~15 operations per event per block against 256 trials of f32 work.
+//   - One block per (tile, fddot*n_fdot + fdot, event split). The block
+//     stages one chunk of 1024 events in shared memory: each thread computes
+//     the f64 rows for a stride of events (Hopper has real f64, so the
+//     TILE_CHUNK HBM rows the TPU needed are gone), then every thread sweeps
+//     the chunk, reading the (base, b) pair as one broadcast float2 load.
+//     The f64 row work is ~15-20 operations per event per block against 256
+//     trials of f32 work.
+//   - The weights, the fddot row and the trig mode are template flags: the
+//     plain variant (no weights, no fddot row, polynomial trig) is the 2-D
+//     north-star kernel as it was, with no extra work. The extended variant
+//     stages w_e beside (base, b) and accumulates fmaf(w_e, cos_k, C_k):
+//     with w_e = 1.0 the product is exact, so it equals the plain sum bit for
+//     bit; a zero fddot row adds an exact 0.0f, so the cube at fddots=[0.0]
+//     equals the 2-D grid bit for bit, as the JAX kernels pin.
 //   - Per-chunk sums are added to the running sums, as the Pallas kernel
 //     accumulated per event chunk.
-//   - When the (tile, fdot) grid is too small to fill the 132 SMs, events are
-//     split across blocks; a second kernel adds the split partials in a
-//     fixed order. No float atomics: two runs are bitwise equal.
+//   - When the (tile, row) grid is too small to fill the 132 SMs, events are
+//     split across blocks in ranges of per_split events (chosen by the
+//     caller); a second kernel adds the split partials in split order. No
+//     float atomics: two runs are bitwise equal, and a streamed run that
+//     launches one split per chunk and adds the chunks in order equals the
+//     monolithic run at the same split length.
 //   - Events past the end are never read: the tail chunk's loop bound stops
 //     at n, which is the weight-0 padding of the Pallas wrapper (pallas_z2.py:
 //     190) without the +0.0 additions.
 //   - The phase is formed with __fmul_rn/__fadd_rn and the f64 rows with
 //     __dmul_rn so nvcc cannot contract them into FMAs: the rounding is that
 //     of the JAX decomposition. The polynomial and the recurrence use FMA.
+//     The file is built without -use_fast_math, so sincosf is the accurate
+//     libdevice function, not __sincosf.
 //
 // Plain C interface, loaded with ctypes (crimp_tpu_torch/ops/z2_grid.py).
 // Every entry point launches on the caller's stream and returns
@@ -102,21 +119,31 @@ __global__ void probe_kernel(const float* __restrict__ x, float* __restrict__ ou
   if (i == 0) *out = buf[0];
 }
 
-// Grid (n_tiles, n_fdot, n_split), TRIAL_TILE threads. Writes the block's
-// sums to dst[split][2][n_fdot][n_tiles][NH][TRIAL_TILE] (C then S).
-template <int NH>
+// 2*pi rounded to f32, as (2*np.pi) * f32 is in the JAX kernels
+constexpr float TWO_PI_F = static_cast<float>(6.283185307179586);
+
+// Grid (n_tiles, n_rows, n_split), n_rows = n_fddot*n_fdot, TRIAL_TILE
+// threads. Row y is (fddot y / n_fdot, fdot y % n_fdot). Writes the block's
+// sums to dst[split][2][n_rows][n_tiles][NH][TRIAL_TILE] (C then S).
+// EXT adds the optional fddot row (sixth_fdd = fdd/6 per fddot, may be
+// null) and the optional per-event weights (w, may be null: 1.0).
+template <int NH, bool EXT, bool POLY>
 __global__ void __launch_bounds__(TRIAL_TILE)
 z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, double df,
-               const double* __restrict__ half_fd, int n_fdot, int n_tiles,
-               int per_split, float* __restrict__ dst) {
-  __shared__ float2 s_pb[EVENT_CHUNK];  // (base, b) per staged event
+               const double* __restrict__ half_fd, int n_fdot,
+               const double* __restrict__ sixth_fdd, const float* __restrict__ w,
+               int n_tiles, int per_split, float* __restrict__ dst) {
+  __shared__ float2 s_pb[EVENT_CHUNK];              // (base, b) per staged event
+  __shared__ float s_w[EXT ? EVENT_CHUNK : 1];      // w per staged event
   const int tile = blockIdx.x;
-  const int fd = blockIdx.y;
+  const int row = blockIdx.y;
   const int split = blockIdx.z;
   const int j = threadIdx.x;
 
   const double f_tile = __dadd_rn(f0, __dmul_rn(static_cast<double>(tile), tdf));
-  const double hf = half_fd[fd];
+  const double hf = half_fd[row % n_fdot];
+  const bool has_r = EXT && sixth_fdd != nullptr;
+  const double sf = has_r ? sixth_fdd[row / n_fdot] : 0.0;
   const float jlo = static_cast<float>(j);
 
   float c_tot[NH], s_tot[NH];
@@ -134,10 +161,16 @@ z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, doubl
     __syncthreads();  // the previous chunk has been consumed
     for (int e = j; e < cnt; e += TRIAL_TILE) {
       const double tv = t[e0 + e];
+      const double tt = __dmul_rn(tv, tv);
       const float r = static_cast<float>(cfrac_d(__dmul_rn(f_tile, tv)));
-      const float q = static_cast<float>(cfrac_d(__dmul_rn(hf, __dmul_rn(tv, tv))));
+      const float q = static_cast<float>(cfrac_d(__dmul_rn(hf, tt)));
       const float b = static_cast<float>(cfrac_d(__dmul_rn(df, tv)));
-      s_pb[e] = make_float2(__fadd_rn(r, q), b);
+      float base = __fadd_rn(r, q);
+      if (has_r) {
+        base = __fadd_rn(base, static_cast<float>(cfrac_d(__dmul_rn(sf, __dmul_rn(tt, tv)))));
+      }
+      s_pb[e] = make_float2(base, b);
+      if (EXT) s_w[e] = w != nullptr ? w[e0 + e] : 1.0f;
     }
     __syncthreads();
 
@@ -152,17 +185,32 @@ z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, doubl
       const float2 pb = s_pb[e];
       const float fr = cfrac_f(__fadd_rn(pb.x, __fmul_rn(jlo, pb.y)));
       float s1, c1;
-      sincos_poly(fr, s1, c1);
-      c_ch[0] += c1;
-      s_ch[0] += s1;
+      if (POLY) {
+        sincos_poly(fr, s1, c1);
+      } else {
+        sincosf(__fmul_rn(TWO_PI_F, fr), &s1, &c1);
+      }
+      const float we = EXT ? s_w[e] : 1.0f;
+      if (EXT) {
+        c_ch[0] = fmaf(we, c1, c_ch[0]);
+        s_ch[0] = fmaf(we, s1, s_ch[0]);
+      } else {
+        c_ch[0] += c1;
+        s_ch[0] += s1;
+      }
       const float two_c1 = 2.0f * c1;
       float ckm2 = 1.0f, skm2 = 0.0f, ckm1 = c1, skm1 = s1;
 #pragma unroll
       for (int k = 1; k < NH; ++k) {
         const float ck = fmaf(two_c1, ckm1, -ckm2);
         const float sk = fmaf(two_c1, skm1, -skm2);
-        c_ch[k] += ck;
-        s_ch[k] += sk;
+        if (EXT) {
+          c_ch[k] = fmaf(we, ck, c_ch[k]);
+          s_ch[k] = fmaf(we, sk, s_ch[k]);
+        } else {
+          c_ch[k] += ck;
+          s_ch[k] += sk;
+        }
         ckm2 = ckm1;
         skm2 = skm1;
         ckm1 = ck;
@@ -176,9 +224,9 @@ z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, doubl
     }
   }
 
-  const size_t plane = static_cast<size_t>(n_fdot) * n_tiles * NH * TRIAL_TILE;
-  const size_t row = ((static_cast<size_t>(fd) * n_tiles + tile) * NH) * TRIAL_TILE + j;
-  float* c_dst = dst + static_cast<size_t>(split) * 2 * plane + row;
+  const size_t plane = static_cast<size_t>(gridDim.y) * n_tiles * NH * TRIAL_TILE;
+  const size_t off = ((static_cast<size_t>(row) * n_tiles + tile) * NH) * TRIAL_TILE + j;
+  float* c_dst = dst + static_cast<size_t>(split) * 2 * plane + off;
   float* s_dst = c_dst + plane;
 #pragma unroll
   for (int k = 0; k < NH; ++k) {
@@ -198,11 +246,20 @@ __global__ void z2_reduce_splits(const float* __restrict__ partial, int n_split,
 }
 
 template <int NH>
-void launch_tiles(dim3 grid, cudaStream_t stream, const double* t, int n, double f0,
-                  double tdf, double df, const double* half_fd, int n_fdot, int n_tiles,
-                  int per_split, float* dst) {
-  z2_tile_kernel<NH><<<grid, TRIAL_TILE, 0, stream>>>(t, n, f0, tdf, df, half_fd, n_fdot,
-                                                      n_tiles, per_split, dst);
+void launch_tiles(bool ext, bool poly, dim3 grid, cudaStream_t stream, const double* t, int n,
+                  double f0, double tdf, double df, const double* half_fd, int n_fdot,
+                  const double* sixth_fdd, const float* w, int n_tiles, int per_split,
+                  float* dst) {
+  if (!ext) {
+    z2_tile_kernel<NH, false, true><<<grid, TRIAL_TILE, 0, stream>>>(
+        t, n, f0, tdf, df, half_fd, n_fdot, nullptr, nullptr, n_tiles, per_split, dst);
+  } else if (poly) {
+    z2_tile_kernel<NH, true, true><<<grid, TRIAL_TILE, 0, stream>>>(
+        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, per_split, dst);
+  } else {
+    z2_tile_kernel<NH, true, false><<<grid, TRIAL_TILE, 0, stream>>>(
+        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, per_split, dst);
+  }
 }
 
 }  // namespace
@@ -213,28 +270,36 @@ extern "C" int z2_probe(const float* x, float* out, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sums for the grid f0 + (tile*TRIAL_TILE + j)*df, one row per half_fd entry.
-// out: [2][n_fdot][n_tiles][nharm][TRIAL_TILE] f32. With n_split > 1 the
-// event range is cut into n_split ranges of per_split events (a multiple of
-// EVENT_CHUNK), their sums land in partial ([n_split] x out's shape) and a
-// second kernel reduces them into out in split order.
+// Sums for the grid f0 + (tile*TRIAL_TILE + j)*df, one row per (fddot, fdot)
+// pair: half_fd holds 0.5*fdot (n_fdot), sixth_fdd fdd/6 (n_fddot; null for
+// the 2-D grid, then n_fddot must be 1), w the per-event f32 weights (null:
+// all 1). poly selects the polynomial sin/cos (1) or sincosf (0).
+// out: [2][n_fddot][n_fdot][n_tiles][nharm][TRIAL_TILE] f32. With n_split > 1
+// the event range is cut into n_split ranges of per_split events (a multiple
+// of EVENT_CHUNK), their sums land in partial ([n_split] x out's shape) and
+// a second kernel reduces them into out in split order.
 extern "C" int z2_grid_sums(const double* t, int n, double f0, double tdf, double df,
-                            const double* half_fd, int n_fdot, int n_tiles, int nharm,
+                            const double* half_fd, int n_fdot, const double* sixth_fdd,
+                            int n_fddot, const float* w, int n_tiles, int nharm, int poly,
                             int n_split, int per_split, float* partial, float* out,
                             void* stream) {
-  if (n < 1 || n_fdot < 1 || n_tiles < 1 || n_split < 1 || per_split < 1 ||
-      per_split % EVENT_CHUNK != 0 || n_fdot > 65535 || n_split > 65535)
+  const long long n_rows = static_cast<long long>(n_fdot) * n_fddot;
+  if (n < 1 || n_fdot < 1 || n_fddot < 1 || n_tiles < 1 || n_split < 1 || per_split < 1 ||
+      per_split % EVENT_CHUNK != 0 || n_rows > 65535 || n_split > 65535 ||
+      (sixth_fdd == nullptr && n_fddot != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   // every split starts inside the event list, and together they cover it
   const long long covered = static_cast<long long>(n_split) * per_split;
   if (covered - per_split >= n || covered < n) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, n_fdot, n_split);
+  const dim3 grid(n_tiles, static_cast<unsigned>(n_rows), n_split);
   float* dst = n_split > 1 ? partial : out;
+  const bool ext = sixth_fdd != nullptr || w != nullptr || !poly;
   switch (nharm) {
-#define Z2_CASE(NH)                                                                      \
-  case NH:                                                                               \
-    launch_tiles<NH>(grid, s, t, n, f0, tdf, df, half_fd, n_fdot, n_tiles, per_split, dst); \
+#define Z2_CASE(NH)                                                                    \
+  case NH:                                                                             \
+    launch_tiles<NH>(ext, poly != 0, grid, s, t, n, f0, tdf, df, half_fd, n_fdot,      \
+                     sixth_fdd, w, n_tiles, per_split, dst);                           \
     break;
     Z2_CASE(1) Z2_CASE(2) Z2_CASE(3) Z2_CASE(4) Z2_CASE(5)
     Z2_CASE(6) Z2_CASE(7) Z2_CASE(8) Z2_CASE(9) Z2_CASE(10)
@@ -246,7 +311,7 @@ extern "C" int z2_grid_sums(const double* t, int n, double f0, double tdf, doubl
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  const size_t m = static_cast<size_t>(2) * n_fdot * n_tiles * nharm * TRIAL_TILE;
+  const size_t m = static_cast<size_t>(2) * n_rows * n_tiles * nharm * TRIAL_TILE;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((m + threads - 1) / threads);
   z2_reduce_splits<<<blocks, threads, 0, s>>>(partial, n_split, m, out);

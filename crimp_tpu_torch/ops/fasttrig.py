@@ -7,10 +7,12 @@ least-squares polynomials evaluate sin(2*pi*x) and cos(2*pi*x) directly:
 
     max |error| = 3.1e-7 (sin), 3.6e-8 (cos)  over |x| <= 0.5
 
-There is no backend switch: the Z^2 tile kernel (``csrc/z2_grid.cu``) and
-its plain twin (``ops/z2_grid.py``) always use the polynomial pair, as the
-Pallas kernel did. The coefficients below are repeated in the CUDA source
-as float literals; ``tests/test_torch_z2.py`` pins the two copies equal.
+The Z^2 kernels (``csrc/z2_grid.cu``, ``csrc/z2_general.cu``) and their
+plain twins use this pair by default, as the Pallas kernel did; their
+``poly=False`` mode takes f32 sin/cos of 2*pi*frac instead. The
+coefficients below are repeated in both CUDA sources as float literals;
+``tests/test_torch_z2.py`` and ``tests/test_torch_search_general.py`` pin
+the copies equal.
 """
 
 from __future__ import annotations

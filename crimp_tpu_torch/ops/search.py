@@ -1,38 +1,91 @@
-"""Periodicity searches: Z^2_n, H-test, and the 2-D (nu, nudot) Z^2 grid.
+"""Periodicity searches: Z^2_n, H-test, the (nu, nudot) grid and the
+(nu, nudot, nuddot) cube.
 
-Port of the part of ``crimp_tpu/ops/search.py`` that the north-star path
-runs. Statistic parity with the reference (periodsearch.py:57-125):
+Port of ``crimp_tpu/ops/search.py``. Statistic parity with the reference
+(periodsearch.py:57-125):
 
   Z^2_n(f)  = (2/N) * sum_{k=1..n} [ (sum_i cos k*theta_i)^2 + (sum_i sin k*theta_i)^2 ]
   H(f)      = max_m ( cumsum_m Z^2 terms - 4*(m-1) )
-  2-D grid  : theta_i = 2*pi*(f*(t_i-t0) + 0.5*fdot*(t_i-t0)^2), the nudot
-              axis given as log10 magnitudes and applied as -10^x
-              (spin-down only); t0 = (t[0]+t[-1])/2.
+  cube      : theta_i = 2*pi*(f*t_i + 0.5*fdot*t_i^2 + fddot/6*t_i^3), times
+              centered by the caller; PeriodSearch centers on
+              t0 = (t[0]+t[-1])/2 and takes the nudot axis as log10
+              magnitudes applied as -10^x (spin-down only), the nuddot axis
+              signed.
 
-Uniform trial grids go through the Z^2 tile kernel (``ops/z2_grid.py``:
-CUDA on the card, its plain twin on the CPU): f64-reduced per-tile and
-per-fdot rows, f32 polynomial trig, Chebyshev harmonics. The general
-blockwise kernels for non-uniform grids, the streamed and factorized paths
-and the 3-D cube are later work: such requests raise NotImplementedError.
-So does nharm > 20, the limit of the JAX fast path.
+Three engines, as in the JAX package:
+
+- **Uniform grids** (f0 + j*df) run through K2, the Z^2 tile kernel
+  (``ops/z2_grid.py``): f64-reduced rows per tile, fdot and fddot, f32 trig
+  (polynomial by default, ``poly=False`` for f32 sin/cos), Chebyshev
+  harmonics, up to 20 harmonics, optional per-event weights.
+- **Any grid, any nharm** runs through K3, the general exact-phase kernel
+  (``ops/z2_general.py``): the f64 phase per pair, reduced once, f32 (or
+  f64) trig. ``PeriodSearch`` falls through to it for non-uniform grids,
+  nharm > 20 and ``use_grid_fastpath=False``.
+- **Factorized uniform grids** (``mxu=True``, default off): the affine phase
+  in the trial index factors by angle addition into per-row trig and a
+  per-trial sweep, and the event reduction becomes f32 matrix products
+  (``torch.matmul``, full f32 precision pinned; ``mxu_bf16`` rounds the
+  operands to bf16 and keeps an f32 result).
+
+The streamed wrappers copy events to the card in chunks from pinned host
+memory on a side stream, overlapped with the previous chunk's kernel, and
+are bitwise the monolithic result at the same split length.
 
 ``h_power_segments`` (the per-ToA H-test) is plain torch: the phase f*t in
 f64, reduced mod 1, then hardware f32 sin/cos and the Chebyshev recurrence.
+On the CPU every kernel wrapper takes its plain twin.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 
-from crimp_tpu_torch.ops import fasttrig, z2_grid
+from crimp_tpu_torch.ops import fasttrig, z2_general, z2_grid
 from crimp_tpu_torch.utils.device import resolve_device
 
 # The f32 inner sweep's error grows ~linearly in harmonic number; 20 is
 # the conventional H-test maximum and the JAX fast-path limit.
 GRID_FASTPATH_MAX_NHARM = 20
+# Factorized sweep: exact sin/cos reseed every 16 trials (JAX: 64). With the
+# polynomial pair the rotation multiplier's |cos^2+sin^2| error is a smooth
+# function of b, so the sweep's amplitude drifts coherently with the stride;
+# at high signal-to-noise a stride of 64 moves the statistic several times
+# the exact grid's own f32 error, while 16 reaches the floor that shorter
+# strides and hardware trig share (tests/test_torch_mxu.py pins both).
+GRID_MXU_RESEED = 16
+MXU_EVENT_BLOCK = 1 << 15  # factorized path: events per f32 matmul block
+MXU_TRIAL_BLOCK = 256  # factorized path: trials per sweep matrix
+STREAM_EVENT_CHUNK = 1 << 21  # events per streamed host->device chunk
+
+
+def grid_fastpath_enabled(nharm: int, override: bool | None = None) -> bool:
+    """Whether the uniform-grid f32 fast path is used: the explicit
+    ``override``, else nharm <= 20 (the port reads no environment)."""
+    if override is not None:
+        return bool(override)
+    return nharm <= GRID_FASTPATH_MAX_NHARM
+
+
+def stream_min_events(threshold: int | str | None = 1 << 22) -> int | None:
+    """Event count above which a caller should stream: ``threshold`` as an
+    int, None for 0/"0"/"off"/None (streaming disabled); default 2^22, as
+    in the JAX package, but given as an argument rather than read from the
+    environment."""
+    if threshold is None or str(threshold).strip().lower() in ("0", "off", "false", "no"):
+        return None
+    try:
+        value = int(threshold)
+    except ValueError:
+        raise ValueError(f"stream_min_events={threshold!r} not recognized; expected an "
+                         "integer event count or 0/off") from None
+    if value < 0:
+        raise ValueError(f"stream_min_events must be >= 0, got {value}")
+    return value
 
 
 def chebyshev_weighted_sums(cos1, sin1, weights, nharm: int):
@@ -57,22 +110,41 @@ def chebyshev_weighted_sums(cos1, sin1, weights, nharm: int):
     return torch.stack(c_list), torch.stack(s_list)
 
 
-def _harmonic_sums_cycles(phase_cycles, weights, nharm: int):
+def _trig_rows(frac: torch.Tensor, poly: bool):
+    """(cos, sin) of 2*pi*frac for frac already in [-0.5, 0.5)."""
+    if poly:
+        s, c = fasttrig.sincos_cycles(frac)
+        return c, s
+    theta = (2 * math.pi) * frac
+    return torch.cos(theta), torch.sin(theta)
+
+
+def _harmonic_sums_cycles(phase_cycles, weights, nharm: int, poly: bool = False):
     """(C_k, S_k) for k=1..nharm where C_k = sum_i w_i cos(2 pi k phi_i).
 
     ``phase_cycles``: (..., B) model phase in cycles (f64); the fractional
-    part is taken in f64, then hardware f32 sin/cos and the per-row sums
-    run in f32. Returns f64 tensors of shape (nharm, ...).
+    part is taken in f64, then f32 sin/cos (hardware, or the polynomial
+    with ``poly``) and the per-row sums run in f32. Returns f64 tensors of
+    shape (nharm, ...).
     """
-    theta = (2 * math.pi) * fasttrig.centered_frac(phase_cycles).to(torch.float32)
-    c_sums, s_sums = chebyshev_weighted_sums(torch.cos(theta), torch.sin(theta),
-                                             weights.to(torch.float32), nharm)
+    cos1, sin1 = _trig_rows(fasttrig.centered_frac(phase_cycles).to(torch.float32), poly)
+    c_sums, s_sums = chebyshev_weighted_sums(cos1, sin1, weights.to(torch.float32), nharm)
     return c_sums.to(torch.float64), s_sums.to(torch.float64)
 
 
 def z2_from_sums(c_sum, s_sum, n_events):
     """Z^2 per harmonic from trig sums: (nharm, ...) -> (nharm, ...)."""
     return (c_sum**2 + s_sum**2) * (2.0 / n_events)
+
+
+def _h_from_sums(c_sum, s_sum, n_events, dim: int):
+    """H-test from trig sums whose harmonic axis is ``dim``."""
+    z2_cum = torch.cumsum(z2_from_sums(c_sum, s_sum, n_events), dim=dim)
+    shape = [1] * z2_cum.dim()
+    shape[dim] = z2_cum.shape[dim]
+    penalties = 4.0 * torch.arange(z2_cum.shape[dim], dtype=torch.float64,
+                                   device=z2_cum.device).reshape(shape)
+    return torch.amax(z2_cum - penalties, dim=dim)
 
 
 def uniform_grid(freqs: np.ndarray, rtol: float = 1e-12):
@@ -90,52 +162,492 @@ def uniform_grid(freqs: np.ndarray, rtol: float = 1e-12):
     return float(f[0]), float(df)
 
 
-def _check_nharm(nharm: int) -> None:
-    if nharm > GRID_FASTPATH_MAX_NHARM:
-        raise NotImplementedError(
-            f"nharm={nharm} > {GRID_FASTPATH_MAX_NHARM} needs the general "
-            "exact-phase kernels, which are not ported yet"
-        )
+def _f64(x, dev: torch.device) -> torch.Tensor:
+    """A contiguous 1-D f64 tensor of ``x`` (numpy, list or tensor) on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float64).reshape(-1).contiguous()
+    return torch.as_tensor(np.asarray(x, dtype=np.float64).reshape(-1)).to(dev)
+
+
+def _weights(weights, dev: torch.device):
+    if weights is None:
+        return None
+    if isinstance(weights, torch.Tensor):
+        return weights.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+    return torch.as_tensor(np.asarray(weights, dtype=np.float32).reshape(-1)).to(dev)
+
+
+def _row_coeffs(fdots, fddots, dev: torch.device):
+    """(0.5*fdot, fdd/6 or None) in f64, as the JAX kernels form them."""
+    half = _f64(0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1), dev)
+    sixth = None if fddots is None else _f64(np.asarray(fddots, dtype=np.float64).reshape(-1) / 6.0, dev)
+    return half, sixth
+
+
+# ---------------------------------------------------------------------------
+# Uniform grids on K2
+# ---------------------------------------------------------------------------
+
+
+def _tiles_to_freqs(cs: torch.Tensor, n_freq: int) -> torch.Tensor:
+    """K2's (2, [n_fddot,] n_fdot, n_tiles, nharm, T) f32 sums ->
+    (2, n_fddot, n_fdot, nharm, n_freq) f64."""
+    if cs.dim() == 5:
+        cs = cs.unsqueeze(1)
+    two, n_l, n_f, n_tiles, nharm, tile = cs.shape
+    cs = cs.to(torch.float64).permute(0, 1, 2, 4, 3, 5)
+    return cs.reshape(two, n_l, n_f, nharm, n_tiles * tile)[..., :n_freq]
+
+
+def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int, poly: bool,
+                  weights=None, per_split: int | None = None) -> torch.Tensor:
+    """(2, n_fddot, n_fdot, nharm, n_freq) f64 sums through K2; ``fddots``
+    None runs the 2-D instantiation (one fddot row of the output)."""
+    half, sixth = _row_coeffs(fdots, fddots, t.device)
+    n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
+    cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth,
+                              weights=_weights(weights, t.device), poly=poly,
+                              per_split=per_split)
+    return _tiles_to_freqs(cs, n_freq)
+
+
+def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
+                          poly: bool = True, mxu: bool = False, reseed: int = GRID_MXU_RESEED,
+                          mxu_bf16: bool = False, weights=None, per_split: int | None = None,
+                          device=None):
+    """(c, s, n_events) for the uniform-grid wrappers, c and s of shape
+    (n_fddot, n_fdot, nharm, n_freq) f64 (n_fddot = 1 when ``fddots`` is
+    None: the 2-D K2 instantiation). ``mxu`` picks the factorized matmul
+    path. There is no fallback ladder: a failing kernel raises."""
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
-
-
-def harmonic_sums_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int,
-                          device=None):
-    """f64 trig sums (n_fdot, nharm, n_freq) each over the (fdot x uniform
-    frequency) grid, through the Z^2 tile kernel. ``fdots`` are signed Hz/s;
-    times are f64 seconds, pre-centered by the caller."""
-    _check_nharm(nharm)
-    dev = resolve_device(device)
-    t = torch.as_tensor(np.asarray(times, dtype=np.float64)).to(dev)
-    half_fd = torch.as_tensor(0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1)).to(dev)
-    n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
-    cs = z2_grid.z2_tile_sums(t, f0, df, half_fd, n_tiles, nharm).to(torch.float64)
-    # (2, n_fdot, n_tiles, nharm, T) -> (2, n_fdot, nharm, n_tiles*T)[..., :n_freq]
-    cs = cs.permute(0, 1, 3, 2, 4).reshape(2, half_fd.shape[0], nharm, -1)[..., :n_freq]
+    t = _f64(times, resolve_device(device))
+    if mxu:
+        c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed,
+                              mxu_bf16)
+        return c, s, t.shape[0]
+    if nharm > z2_grid.MAX_NHARM:
+        raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}; "
+                         "use the general kernels (z2_power, h_power, ...) beyond that")
+    cs = _k2_grid_sums(t, f0, df, n_freq, fdots, fddots, nharm, poly, weights, per_split)
     return cs[0], cs[1], t.shape[0]
 
 
-def z2_power_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
-                     device=None) -> torch.Tensor:
-    """Z^2_n over the (fdot x uniform-frequency) grid -> (n_fdot, n_freq) f64."""
-    c, s, n = harmonic_sums_2d_grid(times, f0, df, n_freq, fdots, nharm, device)
-    return torch.sum(z2_from_sums(c, s, n), dim=1)
+def harmonic_sums_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int,
+                          device=None, **kw):
+    """f64 trig sums (n_fdot, nharm, n_freq) each over the (fdot x uniform
+    frequency) grid, plus the event count. ``fdots`` are signed Hz/s; times
+    are f64 seconds, pre-centered by the caller. Keywords as
+    ``_grid3d_sums_dispatch`` (poly, mxu, reseed, mxu_bf16, weights,
+    per_split)."""
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device, **kw)
+    return c[0], s[0], n
 
 
-def z2_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 2,
-                  device=None) -> torch.Tensor:
+def harmonic_sums_3d_grid(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
+                          device=None, **kw):
+    """f64 trig sums (n_fddot, n_fdot, nharm, n_freq) each over the search
+    cube; ``fddots`` are signed Hz/s^2. Keywords as harmonic_sums_2d_grid."""
+    c, s, _ = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, device=device,
+                                    **kw)
+    return c, s
+
+
+def z2_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 2, device=None,
+                  **kw) -> torch.Tensor:
     """Z^2_n over the uniform grid f0 + j*df -> (n_freq,) f64."""
-    return z2_power_2d_grid(times, f0, df, n_freq, [0.0], nharm, device)[0]
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, [0.0], None, nharm, device=device, **kw)
+    return torch.sum(z2_from_sums(c[0, 0], s[0, 0], n), dim=0)
 
 
-def h_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 20,
-                 device=None) -> torch.Tensor:
+def h_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 20, device=None,
+                 **kw) -> torch.Tensor:
     """H-test over the uniform grid f0 + j*df -> (n_freq,) f64."""
-    c, s, n = harmonic_sums_2d_grid(times, f0, df, n_freq, [0.0], nharm, device)
-    z2_cum = torch.cumsum(z2_from_sums(c[0], s[0], n), dim=0)
-    penalties = 4.0 * torch.arange(nharm, dtype=torch.float64, device=z2_cum.device)[:, None]
-    return torch.amax(z2_cum - penalties, dim=0)
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, [0.0], None, nharm, device=device, **kw)
+    return _h_from_sums(c[0, 0], s[0, 0], n, dim=0)
+
+
+def z2_power_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
+                     device=None, **kw) -> torch.Tensor:
+    """Z^2_n over the (fdot x uniform-frequency) grid -> (n_fdot, n_freq) f64."""
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device, **kw)
+    return torch.sum(z2_from_sums(c[0], s[0], n), dim=1)
+
+
+def z2_power_3d_grid(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int = 2,
+                     device=None, **kw) -> torch.Tensor:
+    """Z^2_n over the (fddot x fdot x uniform-frequency) cube
+    -> (n_fddot, n_fdot, n_freq) f64. ``fdots``/``fddots`` are signed."""
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, device=device,
+                                    **kw)
+    return torch.sum(z2_from_sums(c, s, n), dim=2)
+
+
+def h_power_3d_grid(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int = 20,
+                    device=None, **kw) -> torch.Tensor:
+    """H-test over the cube -> (n_fddot, n_fdot, n_freq) f64."""
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, device=device,
+                                    **kw)
+    return _h_from_sums(c, s, n, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Factorized (matmul) uniform grids
+# ---------------------------------------------------------------------------
+#
+# The uniform-grid phase is affine in the trial index: for trial
+# j = j0 + j_lo and harmonic k, k*phase = k*theta0(row, e) + j_lo*(k*b_e), so
+# cos/sin factor by angle addition into a per-row part (theta0: one row per
+# tile (+) fdot (+) fddot, Chebyshev in k) and a per-trial sweep
+# (cos/sin(2*pi*j_lo*k*b_e): a rotation recurrence in j_lo reseeded with
+# exact sin/cos every `reseed` trials, Chebyshev in k), and the harmonic sums
+# become f32 matrix products per event block:
+#
+#     C_k = Xw_k @ Csw_k^T - Yw_k @ Ssw_k^T        (rows, EB) @ (EB, TB)
+#     S_k = Yw_k @ Csw_k^T + Xw_k @ Ssw_k^T
+#
+# summed over blocks in f64. The JAX package leaves these products to XLA
+# outside any Pallas kernel; here they stay torch.matmul.
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Pin full f32 matmul precision for the block (TF32 keeps ~3 digits and
+    the global setting belongs to the caller); restored on exit."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _sweep_matrices(b: torch.Tensor, trial_block: int, reseed: int, poly: bool):
+    """cos/sin(2*pi*j_lo*b_e) for j_lo = 0..trial_block-1 -> (TB, EB) pair.
+
+    Exact sin/cos only at the reseed anchors j_lo = m*reseed; within a
+    segment the pair advances by the angle-addition rotation, whose f32
+    drift is cut back to zero at every anchor. The anchor phases
+    m*reseed*b are reduced in f32."""
+    reseed = max(1, min(int(reseed), trial_block))
+    n_seg = -(-trial_block // reseed)
+    seg = torch.arange(n_seg, dtype=torch.float32, device=b.device)
+    c, s = _trig_rows(fasttrig.centered_frac(seg[:, None] * (reseed * b)[None, :]), poly)
+    ca, sa = _trig_rows(b, poly)  # rotation by 2*pi*b
+    c_all, s_all = [], []
+    for _ in range(reseed):
+        c_all.append(c)
+        s_all.append(s)
+        c, s = c * ca - s * sa, s * ca + c * sa
+    csw = torch.stack(c_all, dim=1).reshape(n_seg * reseed, -1)[:trial_block]
+    ssw = torch.stack(s_all, dim=1).reshape(n_seg * reseed, -1)[:trial_block]
+    return csw, ssw
+
+
+def _mxu_dot(a: torch.Tensor, b: torch.Tensor, mxu_bf16: bool) -> torch.Tensor:
+    """a @ b^T with an f32 result. With ``mxu_bf16`` the operands are rounded
+    to bf16 and multiplied by an f32 GEMM: a product of two bf16 values is
+    exact in f32, so this is the f32-accumulated bf16 product that JAX's
+    preferred_element_type=f32 asks for (torch.matmul of bf16 tensors would
+    round its output to bf16)."""
+    if mxu_bf16:
+        a = a.to(torch.bfloat16).to(torch.float32)
+        b = b.to(torch.bfloat16).to(torch.float32)
+    return a @ b.T
+
+
+def _factored_harmonic_sums(cos0, sin0, weights, csw, ssw, nharm: int, mxu_bf16: bool):
+    """(C, S) of shape (nharm, n_rows, TB) f64 from the factor matrices:
+    ``cos0``/``sin0`` (n_rows, EB) trig of the per-row base phase,
+    ``csw``/``ssw`` (TB, EB) the sweep. Harmonic k of both factors comes from
+    the Chebyshev recurrence; four f32 matmuls per harmonic."""
+    w = weights[None, :]
+    ck, sk = cos0, sin0
+    ck_m2, sk_m2 = torch.ones_like(cos0), torch.zeros_like(sin0)
+    cswk, sswk = csw, ssw
+    cswk_m2, sswk_m2 = torch.ones_like(csw), torch.zeros_like(ssw)
+    c_list, s_list = [], []
+    for k in range(nharm):
+        if k:
+            ck, ck_m2 = 2 * cos0 * ck - ck_m2, ck
+            sk, sk_m2 = 2 * cos0 * sk - sk_m2, sk
+            cswk, cswk_m2 = 2 * csw * cswk - cswk_m2, cswk
+            sswk, sswk_m2 = 2 * csw * sswk - sswk_m2, sswk
+        xw, yw = w * ck, w * sk
+        c_list.append(_mxu_dot(xw, cswk, mxu_bf16) - _mxu_dot(yw, sswk, mxu_bf16))
+        s_list.append(_mxu_dot(yw, cswk, mxu_bf16) + _mxu_dot(xw, sswk, mxu_bf16))
+    return torch.stack(c_list).to(torch.float64), torch.stack(s_list).to(torch.float64)
+
+
+def _mxu_block(t, w, f_tiles, half, sixth, df: float, nharm: int, trial_block: int, poly: bool,
+               reseed: int, mxu_bf16: bool):
+    """One event block of the factorized cube: (C, S) of shape
+    (nharm, n_fddot*n_fdot*n_tiles, TB) f64. Rows combine tile (+) fdot
+    (+) fddot by angle addition, so the transcendental rows number
+    n_tiles + n_fdot + n_fddot per block."""
+    tt = t * t
+    ct, st = _trig_rows(fasttrig.centered_frac(f_tiles[:, None] * t[None, :]).to(torch.float32), poly)
+    cq, sq = _trig_rows(fasttrig.centered_frac(half[:, None] * tt[None, :]).to(torch.float32), poly)
+    c0 = cq[:, None, :] * ct[None, :, :] - sq[:, None, :] * st[None, :, :]  # (n_fdot, n_tiles, EB)
+    s0 = sq[:, None, :] * ct[None, :, :] + cq[:, None, :] * st[None, :, :]
+    if sixth is not None:
+        cr, sr = _trig_rows(fasttrig.centered_frac(sixth[:, None] * (tt * t)[None, :]).to(torch.float32),
+                            poly)
+        c0, s0 = (cr[:, None, None, :] * c0[None] - sr[:, None, None, :] * s0[None],
+                  sr[:, None, None, :] * c0[None] + cr[:, None, None, :] * s0[None])
+    csw, ssw = _sweep_matrices(fasttrig.centered_frac(df * t).to(torch.float32), trial_block,
+                               reseed, poly)
+    return _factored_harmonic_sums(c0.reshape(-1, t.shape[0]), s0.reshape(-1, t.shape[0]), w,
+                                   csw, ssw, nharm, mxu_bf16)
+
+
+class _MxuCarry:
+    """The factorized path's f64 running sums over event blocks, fed in
+    block order by the monolithic and the streamed drivers alike."""
+
+    def __init__(self, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int, poly: bool,
+                 reseed: int, mxu_bf16: bool, device, event_block: int = MXU_EVENT_BLOCK,
+                 trial_block: int = MXU_TRIAL_BLOCK):
+        self.df, self.n_freq, self.nharm, self.poly = float(df), int(n_freq), int(nharm), bool(poly)
+        self.reseed, self.mxu_bf16 = int(reseed), bool(mxu_bf16)
+        self.event_block, self.trial_block = int(event_block), int(trial_block)
+        self.n_tiles = -(-self.n_freq // self.trial_block)
+        # f0 + (tile*TB)*df: the association of the JAX factorized kernels
+        self.f_tiles = f0 + (torch.arange(self.n_tiles, dtype=torch.float64, device=device)
+                             * self.trial_block) * df
+        self.half, self.sixth = _row_coeffs(fdots, fddots, device)
+        self.shape = (1 if fddots is None else self.sixth.shape[0], self.half.shape[0])
+        self.c = self.s = None
+
+    def feed(self, t: torch.Tensor, w: torch.Tensor | None) -> None:
+        """Add the sums of ``t`` (a whole number of event blocks, or the tail)."""
+        with _full_f32_matmul():
+            for e0 in range(0, t.shape[0], self.event_block):
+                tb = t[e0:e0 + self.event_block]
+                wb = (torch.ones(tb.shape[0], dtype=torch.float32, device=t.device) if w is None
+                      else w[e0:e0 + self.event_block])
+                c, s = _mxu_block(tb, wb, self.f_tiles, self.half, self.sixth, self.df,
+                                  self.nharm, self.trial_block, self.poly, self.reseed,
+                                  self.mxu_bf16)
+                self.c = c if self.c is None else self.c + c
+                self.s = s if self.s is None else self.s + s
+
+    def result(self):
+        """(c, s) of shape (n_fddot, n_fdot, nharm, n_freq) f64."""
+        def freqs(x):
+            x = x.reshape(self.nharm, *self.shape, self.n_tiles * self.trial_block)
+            return x.permute(1, 2, 0, 3)[..., :self.n_freq]
+        return freqs(self.c), freqs(self.s)
+
+
+def _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16,
+                   event_block: int = MXU_EVENT_BLOCK, trial_block: int = MXU_TRIAL_BLOCK):
+    carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, t.device,
+                      event_block, trial_block)
+    carry.feed(t, _weights(weights, t.device))
+    return carry.result()
+
+
+def harmonic_sums_uniform_mxu(times, f0: float, df: float, n_freq: int, nharm: int,
+                              event_block: int = MXU_EVENT_BLOCK,
+                              trial_block: int = MXU_TRIAL_BLOCK, fdot: float = 0.0,
+                              weights=None, poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                              mxu_bf16: bool = False, device=None):
+    """Factorized 1-D grid sums -> (nharm, n_freq) f64 each."""
+    t = _f64(times, resolve_device(device))
+    c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, [fdot], None, nharm, poly, reseed, mxu_bf16,
+                          event_block, trial_block)
+    return c[0, 0], s[0, 0]
+
+
+def harmonic_sums_uniform_2d_mxu(times, f0: float, df: float, n_freq: int, fdots, nharm: int,
+                                 event_block: int = MXU_EVENT_BLOCK,
+                                 trial_block: int = MXU_TRIAL_BLOCK, weights=None,
+                                 poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                                 mxu_bf16: bool = False, device=None):
+    """Factorized (fdot x frequency) grid sums -> (n_fdot, nharm, n_freq) f64 each."""
+    t = _f64(times, resolve_device(device))
+    c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, None, nharm, poly, reseed, mxu_bf16,
+                          event_block, trial_block)
+    return c[0], s[0]
+
+
+def harmonic_sums_uniform_3d_mxu(times, f0: float, df: float, n_freq: int, fdots, fddots,
+                                 nharm: int, event_block: int = MXU_EVENT_BLOCK,
+                                 trial_block: int = MXU_TRIAL_BLOCK, weights=None,
+                                 poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                                 mxu_bf16: bool = False, device=None):
+    """Factorized cube sums -> (n_fddot, n_fdot, nharm, n_freq) f64 each."""
+    t = _f64(times, resolve_device(device))
+    return _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed,
+                          mxu_bf16, event_block, trial_block)
+
+
+# ---------------------------------------------------------------------------
+# Streamed uniform grids (host -> device overlap)
+# ---------------------------------------------------------------------------
+
+
+def _stream_chunks(n_events: int, event_chunk: int) -> list[tuple[int, int]]:
+    """Host chunk plan: [(lo, hi), ...] of ``event_chunk`` events, the last
+    one ragged. The chunk is the unit the monolithic kernel splits on, so
+    each chunk's sums are the ones the monolithic run forms for it."""
+    return [(lo, min(n_events, lo + event_chunk)) for lo in range(0, n_events, event_chunk)]
+
+
+def _device_chunks(times: np.ndarray, plan, dev: torch.device):
+    """Yield each chunk of ``times`` on ``dev`` in plan order. On the card the
+    copy of chunk i+1 is issued on a side stream, from pinned host memory,
+    before chunk i is handed back, so it runs under chunk i's kernel."""
+    if dev.type != "cuda":
+        for lo, hi in plan:
+            yield torch.from_numpy(times[lo:hi]).to(dev)
+        return
+    host = torch.from_numpy(times).pin_memory()
+    copy_stream = torch.cuda.Stream(dev)
+    compute = torch.cuda.current_stream(dev)
+
+    def issue(lo, hi):
+        with torch.cuda.stream(copy_stream):
+            chunk = host[lo:hi].to(dev, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return chunk, done
+
+    pending = issue(*plan[0])
+    for i in range(len(plan)):
+        chunk, done = pending
+        if i + 1 < len(plan):
+            pending = issue(*plan[i + 1])
+        compute.wait_event(done)
+        chunk.record_stream(compute)
+        yield chunk
+
+
+def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
+                           poly: bool = True, fdots=(0.0,), fddots=None,
+                           event_chunk: int | None = None, mxu: bool = False,
+                           reseed: int = GRID_MXU_RESEED, mxu_bf16: bool = False, device=None):
+    """Double-buffered driver of the streamed grid wrappers: (c, s) of shape
+    (n_fddot, n_fdot, nharm, n_freq) f64, bitwise the monolithic result at
+    the same split length. Exact path: each chunk is one K2 split and the
+    f32 carry adds the chunks in order, as z2_reduce_splits adds splits;
+    the chunk length (a multiple of 1024 events) is the monolithic
+    ``per_split``. Factorized path: the same event blocks feed the same f64
+    carry (the chunk length is a multiple of MXU_EVENT_BLOCK)."""
+    dev = resolve_device(device)
+    host = np.ascontiguousarray(
+        times.detach().cpu().numpy() if isinstance(times, torch.Tensor) else times,
+        dtype=np.float64).reshape(-1)
+    unit = MXU_EVENT_BLOCK if mxu else z2_grid.EVENT_CHUNK
+    chunk = STREAM_EVENT_CHUNK if event_chunk is None else int(event_chunk)
+    chunk = max(unit, chunk // unit * unit)
+    plan = _stream_chunks(host.shape[0], chunk)
+    if mxu:
+        carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, dev)
+        for t in _device_chunks(host, plan, dev):
+            carry.feed(t, None)
+        return carry.result()
+    if nharm > z2_grid.MAX_NHARM:
+        raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}")
+    half, sixth = _row_coeffs(fdots, fddots, dev)
+    n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
+    acc = None
+    for t in _device_chunks(host, plan, dev):
+        cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, poly=poly,
+                                  per_split=chunk)
+        acc = cs if acc is None else acc + cs
+    cs = _tiles_to_freqs(acc, n_freq)
+    return cs[0], cs[1]
+
+
+def z2_power_grid_streamed(times, f0: float, df: float, n_freq: int, nharm: int = 2,
+                           device=None, **kw) -> torch.Tensor:
+    """z2_power_grid with double-buffered host->device event streaming."""
+    c, s = _streamed_uniform_sums(times, f0, df, n_freq, nharm, device=device, **kw)
+    return torch.sum(z2_from_sums(c[0, 0], s[0, 0], np.shape(times)[0]), dim=0)
+
+
+def h_power_grid_streamed(times, f0: float, df: float, n_freq: int, nharm: int = 20,
+                          device=None, **kw) -> torch.Tensor:
+    """h_power_grid with double-buffered host->device event streaming."""
+    c, s = _streamed_uniform_sums(times, f0, df, n_freq, nharm, device=device, **kw)
+    return _h_from_sums(c[0, 0], s[0, 0], np.shape(times)[0], dim=0)
+
+
+def z2_power_2d_grid_streamed(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
+                              device=None, **kw) -> torch.Tensor:
+    """z2_power_2d_grid with double-buffered host->device event streaming."""
+    c, s = _streamed_uniform_sums(times, f0, df, n_freq, nharm, fdots=fdots, device=device, **kw)
+    return torch.sum(z2_from_sums(c[0], s[0], np.shape(times)[0]), dim=1)
+
+
+def z2_power_3d_grid_streamed(times, f0: float, df: float, n_freq: int, fdots, fddots,
+                              nharm: int = 2, device=None, **kw) -> torch.Tensor:
+    """z2_power_3d_grid with double-buffered host->device event streaming."""
+    c, s = _streamed_uniform_sums(times, f0, df, n_freq, nharm, fdots=fdots, fddots=fddots,
+                                  device=device, **kw)
+    return torch.sum(z2_from_sums(c, s, np.shape(times)[0]), dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Any grid, any nharm: K3
+# ---------------------------------------------------------------------------
+
+
+def general_harmonic_sums(times, freqs, fdots=(0.0,), fddots=(0.0,), nharm: int = 2,
+                          trig_dtype: torch.dtype = torch.float32, poly: bool = False,
+                          device=None):
+    """(c, s) of shape (n_fddot, n_fdot, nharm, n_freq) f64 for arbitrary
+    frequencies through K3; ``fdots``/``fddots`` signed Hz/s and Hz/s^2."""
+    dev = resolve_device(device)
+    half, sixth = _row_coeffs(fdots, fddots, dev)
+    cs = z2_general.general_sums(_f64(times, dev), _f64(freqs, dev), half, sixth, int(nharm),
+                                 trig_dtype, poly)
+    return cs[0], cs[1]
+
+
+def harmonic_sums_1d(times, freqs, nharm: int, trig_dtype: torch.dtype = torch.float32,
+                     poly: bool = False, device=None):
+    """Trig sums (nharm, n_freq) f64 over all events at arbitrary frequencies."""
+    c, s = general_harmonic_sums(times, freqs, nharm=nharm, trig_dtype=trig_dtype, poly=poly,
+                                 device=device)
+    return c[0, 0], s[0, 0]
+
+
+def z2_power(times, freqs, nharm: int = 2, trig_dtype: torch.dtype = torch.float32,
+             poly: bool = False, device=None) -> torch.Tensor:
+    """Z^2_n at each frequency (times pre-centered by the caller) -> (n_freq,)."""
+    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device)
+    return torch.sum(z2_from_sums(c, s, np.shape(times)[0]), dim=0)
+
+
+def h_power(times, freqs, nharm: int = 20, trig_dtype: torch.dtype = torch.float32,
+            poly: bool = False, device=None) -> torch.Tensor:
+    """H-test at each frequency: max_m (cumsum Z^2_m - 4(m-1)) -> (n_freq,)."""
+    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device)
+    return _h_from_sums(c, s, np.shape(times)[0], dim=0)
+
+
+def z2_power_2d(times, freqs, fdots, nharm: int = 2, trig_dtype: torch.dtype = torch.float32,
+                poly: bool = False, device=None) -> torch.Tensor:
+    """Z^2_n over the (fdot, freq) grid -> (n_fdot, n_freq); signed fdots."""
+    c, s = general_harmonic_sums(times, freqs, fdots, (0.0,), nharm, trig_dtype, poly, device)
+    return torch.sum(z2_from_sums(c[0], s[0], np.shape(times)[0]), dim=1)
+
+
+def z2_power_3d(times, freqs, fdots, fddots, nharm: int = 2,
+                trig_dtype: torch.dtype = torch.float32, poly: bool = False,
+                device=None) -> torch.Tensor:
+    """Z^2_n over the (fddot, fdot, freq) cube -> (n_fddot, n_fdot, n_freq);
+    the arbitrary-grid fallback of the jerk search, both axes signed."""
+    c, s = general_harmonic_sums(times, freqs, fdots, fddots, nharm, trig_dtype, poly, device)
+    return torch.sum(z2_from_sums(c, s, np.shape(times)[0]), dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Per-segment H-test
+# ---------------------------------------------------------------------------
 
 
 def h_power_segments(times, masks, freqs, nharm: int = 5, device=None) -> torch.Tensor:
@@ -147,46 +659,82 @@ def h_power_segments(times, masks, freqs, nharm: int = 5, device=None) -> torch.
     m = torch.as_tensor(np.asarray(masks)).to(dev).to(torch.float64)
     f = torch.as_tensor(np.asarray(freqs, dtype=np.float64)).to(dev)
     c, s = _harmonic_sums_cycles(f[:, None] * t, m, nharm)  # (nharm, S)
-    z2_cum = torch.cumsum(z2_from_sums(c, s, torch.sum(m, dim=-1)), dim=0)
-    return torch.amax(z2_cum - 4.0 * torch.arange(nharm, dtype=torch.float64, device=dev)[:, None], dim=0)
+    return _h_from_sums(c, s, torch.sum(m, dim=-1), dim=0)
+
+
+def h_power_segments_chunked(times, masks, freqs, nharm: int = 5, row_block: int | None = None,
+                             device=None) -> np.ndarray:
+    """``h_power_segments`` in row chunks of ``row_block`` (None/<=0 or >=
+    the row count: one call), bounding the (rows, events, harmonics)
+    temporaries. Rows are independent, so each row's bits are those of the
+    single call. Returns (S,) numpy."""
+    times = np.asarray(times)
+    n_rows = times.shape[0]
+    if row_block is None or row_block <= 0 or row_block >= n_rows:
+        return h_power_segments(times, masks, freqs, nharm, device).cpu().numpy()
+    masks, freqs = np.asarray(masks), np.asarray(freqs)
+    pending = [h_power_segments(times[lo:lo + row_block], masks[lo:lo + row_block],
+                                freqs[lo:lo + row_block], nharm, device)
+               for lo in range(0, n_rows, row_block)]
+    return np.concatenate([p.cpu().numpy() for p in pending])
+
+
+# ---------------------------------------------------------------------------
+# The reference-compatible API
+# ---------------------------------------------------------------------------
 
 
 class PeriodSearch:
     """Reference-compatible search API (periodsearch.py:20-125) on the card.
 
     ``time`` in seconds; trials are centered on t0 = (time[0]+time[-1])/2.
-    Uniform trial grids run through the Z^2 tile kernel on ``device``
-    (default cuda).
+    Uniform trial grids with nharm <= 20 run through K2 unless
+    ``use_grid_fastpath=False``; everything else through K3. ``poly_trig``
+    picks the polynomial sin/cos (None: polynomial, the port's choice, as K2
+    and the Pallas kernel do) or f32 sin/cos. Runs on ``device`` (default
+    cuda).
     """
 
-    def __init__(self, time, freq, nbrHarm: int = 2, device=None):
+    def __init__(self, time, freq, nbrHarm: int = 2, use_grid_fastpath: bool | None = None,
+                 poly_trig: bool | None = None, device=None):
         self.time = np.asarray(time, dtype=np.float64)
         self.freq = np.asarray(freq, dtype=np.float64)
         self.nbrHarm = int(nbrHarm)
         self.t0 = (self.time[0] + self.time[-1]) / 2
+        self.use_grid_fastpath = use_grid_fastpath
+        self.poly_trig = poly_trig
         self.device = resolve_device(device)
 
+    def _poly(self) -> bool:
+        return True if self.poly_trig is None else bool(self.poly_trig)
+
     def _grid(self):
-        grid = uniform_grid(self.freq)
-        if grid is None:
-            raise NotImplementedError(
-                "non-uniform trial grids need the general blockwise kernels, "
-                "which are not ported yet"
-            )
-        return grid
+        """(f0, df) when the trial grid is uniform and the fast path is on."""
+        if not grid_fastpath_enabled(self.nbrHarm, self.use_grid_fastpath):
+            return None
+        return uniform_grid(self.freq)
 
     def _centered(self) -> np.ndarray:
         return self.time - self.t0
 
+    def _kw(self) -> dict:
+        return {"poly": self._poly(), "device": self.device}
+
     def ztest(self) -> np.ndarray:
-        f0, df = self._grid()
-        return z2_power_grid(self._centered(), f0, df, len(self.freq), self.nbrHarm,
-                             device=self.device).cpu().numpy()
+        grid = self._grid()
+        if grid is not None:
+            power = z2_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
+        else:
+            power = z2_power(self._centered(), self.freq, self.nbrHarm, **self._kw())
+        return power.cpu().numpy()
 
     def htest(self) -> np.ndarray:
-        f0, df = self._grid()
-        return h_power_grid(self._centered(), f0, df, len(self.freq), self.nbrHarm,
-                            device=self.device).cpu().numpy()
+        grid = self._grid()
+        if grid is not None:
+            power = h_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
+        else:
+            power = h_power(self._centered(), self.freq, self.nbrHarm, **self._kw())
+        return power.cpu().numpy()
 
     def twod_ztest(self, freq_dot):
         """2-D Z^2 on a (log10 |nudot|) grid, spin-down sign enforced.
@@ -196,15 +744,69 @@ class PeriodSearch:
         """
         log_fdots = np.asarray(freq_dot, dtype=np.float64)
         signed = -(10.0**log_fdots)
-        f0, df = self._grid()
-        power = z2_power_2d_grid(self._centered(), f0, df, len(self.freq), signed,
-                                 self.nbrHarm, device=self.device).cpu().numpy()
-        rows = np.column_stack(
-            [
-                np.tile(self.freq, len(log_fdots)),
-                np.repeat(log_fdots, len(self.freq)),
-                power.reshape(-1),
-            ]
-        )
+        grid = self._grid()
+        if grid is not None:
+            power = z2_power_2d_grid(self._centered(), *grid, len(self.freq), signed, self.nbrHarm,
+                                     **self._kw())
+        else:
+            power = z2_power_2d(self._centered(), self.freq, signed, self.nbrHarm, **self._kw())
+        rows = np.column_stack([
+            np.tile(self.freq, len(log_fdots)),
+            np.repeat(log_fdots, len(self.freq)),
+            power.cpu().numpy().reshape(-1),
+        ])
         table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Z2pow": rows[:, 2]}
         return rows, table
+
+    def _threed_rows(self, log_fdots, fdd, power):
+        """(rows, column dict) for the cube scans: outer fddot, then fdot,
+        then freq (the reference 2-D row ordering extended by one axis)."""
+        rows = np.column_stack([
+            np.tile(self.freq, len(log_fdots) * len(fdd)),
+            np.tile(np.repeat(log_fdots, len(self.freq)), len(fdd)),
+            np.repeat(fdd, len(self.freq) * len(log_fdots)),
+            power.cpu().numpy().reshape(-1),
+        ])
+        table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Freq_ddot": rows[:, 2],
+                 "Z2pow": rows[:, 3]}
+        return rows, table
+
+    def threed_ztest(self, freq_dot, freq_ddot):
+        """3-D Z^2 over the (freq x log10 |nudot| x signed nuddot) cube.
+
+        ``freq_dot`` keeps twod_ztest's convention (log10 magnitudes applied
+        as -10**x); ``freq_ddot`` is signed s^-3. Returns (rows, column
+        dict) ordered outer fddot, then fdot, then freq.
+        """
+        log_fdots = np.asarray(freq_dot, dtype=np.float64)
+        signed = -(10.0**log_fdots)
+        fdd = np.asarray(freq_ddot, dtype=np.float64)
+        grid = self._grid()
+        if grid is not None:
+            power = z2_power_3d_grid(self._centered(), *grid, len(self.freq), signed, fdd,
+                                     self.nbrHarm, **self._kw())
+        else:
+            power = z2_power_3d(self._centered(), self.freq, signed, fdd, self.nbrHarm,
+                                **self._kw())
+        return self._threed_rows(log_fdots, fdd, power)
+
+    def semicoherent_ztest(self, freq_dot, freq_ddot, n_segments: int):
+        """Semi-coherent stacked Z^2 over the cube (ops/semicoherent).
+
+        Events split into ``n_segments`` equal-duration segments, each
+        scanned coherently at the global phase model, the per-segment Z^2
+        terms summed incoherently. Same axis conventions and row ordering as
+        threed_ztest; needs a uniform frequency grid.
+        """
+        from crimp_tpu_torch.ops import semicoherent
+
+        grid = uniform_grid(self.freq)
+        if grid is None:
+            raise ValueError("semicoherent_ztest needs a uniform frequency grid")
+        log_fdots = np.asarray(freq_dot, dtype=np.float64)
+        signed = -(10.0**log_fdots)
+        fdd = np.asarray(freq_ddot, dtype=np.float64)
+        power = semicoherent.semicoherent_z2_grid(
+            self._centered(), *grid, len(self.freq), signed, fdd, nharm=self.nbrHarm,
+            n_segments=int(n_segments), **self._kw())
+        return self._threed_rows(log_fdots, fdd, power)

@@ -8,11 +8,15 @@ Counterpart of ``crimp_tpu/ops/pallas_z2.py``. Two kernels live in
   (8, 128) f32 block, 524800 for ``arange(1024)``. It tells a toolchain
   failure from a kernel failure.
 - ``z2_tile_sums`` (K2) replaces ``_make_kernel``/``_tile_chunk_sums``: for
-  every (fdot, trial tile) and trial j_lo in the tile it forms
-  phase = [frac(f_tile*t) + frac(fdot*t^2/2)] + j_lo*frac(df*t) with the f64
-  rows reduced by ``centered_frac`` and cast to f32, re-reduces in f32,
-  evaluates the polynomial sin/cos pair, runs the Chebyshev recurrence to
-  ``nharm`` and returns the weighted sums C_k, S_k.
+  every (fddot, fdot, trial tile) and trial j_lo in the tile it forms
+  phase = [(frac(f_tile*t) + frac(fdot*t^2/2)) + frac(fdd*t^3/6)]
+  + j_lo*frac(df*t) with the f64 rows reduced by ``centered_frac`` and cast
+  to f32, re-reduces in f32, evaluates the sin/cos pair (the polynomial, or
+  f32 sin/cos of 2*pi*frac), runs the Chebyshev recurrence to ``nharm`` and
+  returns the (optionally weighted) sums C_k, S_k.
+
+``build()`` compiles every source of ``csrc/`` (this one and K3's
+``z2_general.cu``), one ``nvcc`` per source, all started together.
 
 Each wrapper takes a CPU tensor to its plain twin (``probe_reference``,
 ``z2_tile_sums_reference``: the same math in torch ops). A CUDA tensor
@@ -42,8 +46,11 @@ from crimp_tpu_torch.ops import fasttrig, search
 TRIAL_TILE = 256  # trials per tile = threads per block of K2
 EVENT_CHUNK = 1024  # events staged per shared-memory chunk (and twin chunk)
 MAX_NHARM = 20  # K2 keeps 4*nharm f32 accumulators per thread in registers
+MAX_ROWS = 65535  # n_fddot * n_fdot rides gridDim.y
 
-SOURCE = pathlib.Path(__file__).resolve().parent.parent / "csrc" / "z2_grid.cu"
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu"}
+SOURCE = SOURCES["z2_grid"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -52,6 +59,8 @@ LAUNCHES = {"probe": 0, "z2_tile_sums": 0}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+# per source: path, seconds, cached, log; "seconds" is the wall time of the
+# whole (parallel) build
 BUILD_INFO: dict = {}
 
 
@@ -75,51 +84,70 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the Z^2 kernels need the CUDA toolkit")
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile ``csrc/z2_grid.cu`` into ``build/kernels/`` (keyed by the
-    source and flags' hash); records the compiler's ``-Xptxas -v`` report
-    and the build time in ``BUILD_INFO``."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libz2grid_{key}.so"
-    if out.exists() and not force:
-        BUILD_INFO.update(path=str(out), seconds=0.0, cached=True, log="")
-        return out
+def build(force: bool = False) -> dict:
+    """Compile every ``csrc/*.cu`` into ``build/kernels/`` (each keyed by its
+    source and flags' hash), one ``nvcc`` process per source, all started
+    together. Records each compiler's ``-Xptxas -v`` report and time in
+    ``BUILD_INFO``; returns {name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    paths, running = {}, {}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=seconds, cached=False,
-                      log=(proc.stdout + proc.stderr).strip())
-    return out
+    for name, src_path in SOURCES.items():
+        src = src_path.read_bytes()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"lib{name}_{key}.so"
+        paths[name] = out
+        if out.exists() and not force:
+            BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, log="")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, log=log.strip())
+    BUILD_INFO["seconds"] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 def _lib():
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(build()["z2_grid"]))
             vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             lib.z2_probe.argtypes = [vp, vp, ci, vp]
             lib.z2_probe.restype = ci
-            lib.z2_grid_sums.argtypes = [vp, ci, cd, cd, cd, vp, ci, ci, ci, ci, ci, vp, vp, vp]
+            lib.z2_grid_sums.argtypes = [vp, ci, cd, cd, cd, vp, ci, vp, ci, vp, ci, ci, ci,
+                                         ci, ci, vp, vp, vp]
             lib.z2_grid_sums.restype = ci
             _LIB = lib
     return _LIB
 
 
-def _check(rc: int, name: str) -> None:
+def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def _stream(t: torch.Tensor) -> int:
+def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def n_split_for(n_blocks: int, n_chunks: int, device: torch.device) -> int:
+    """Event splits per block of the grid so it fills the card: about four
+    blocks of 256 threads per SM, never more splits than chunks."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(n_chunks, math.ceil(4 * sms / n_blocks)))
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +170,8 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"probe: unsupported device {x.device}")
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    rc = _lib().z2_probe(x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
-    _check(rc, "z2_probe")
+    rc = _lib().z2_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x))
+    check_launch(rc, "z2_probe")
     LAUNCHES["probe"] += 1
     return out
 
@@ -160,87 +188,139 @@ def _f_tiles(f0: float, df: float, n_tiles: int, dtype, device) -> torch.Tensor:
 
 def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
                            half_fdots: torch.Tensor, n_tiles: int, nharm: int,
-                           event_chunk: int = EVENT_CHUNK) -> torch.Tensor:
-    """Plain twin of K2: (2, n_fdot, n_tiles, nharm, TRIAL_TILE) f32 sums.
+                           event_chunk: int = EVENT_CHUNK, sixth_fddots: torch.Tensor | None = None,
+                           weights: torch.Tensor | None = None, poly: bool = True,
+                           per_split: int | None = None) -> torch.Tensor:
+    """Plain twin of K2: (2, n_fdot, n_tiles, nharm, TRIAL_TILE) f32 sums, or
+    (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE) with ``sixth_fddots``.
 
     ``times`` are f64 seconds (pre-centered), ``half_fdots`` f64 0.5*fdot
-    per row. Events are taken in chunks of ``event_chunk`` (the last padded
+    and ``sixth_fddots`` f64 fdd/6 per row, ``weights`` optional f32 per
+    event. Events are taken in chunks of ``event_chunk`` (the last padded
     with weight-0 events that add exactly +0.0); per-chunk f32 sums
-    accumulate in f32 across chunks, as the Pallas kernel does.
+    accumulate in f32 across chunks, as the Pallas kernel does. With
+    ``per_split`` the events are cut into ranges of that many, each summed
+    from zero, and the ranges added in order, as the kernel's split plan.
     """
-    dev = times.device
     n = times.shape[0]
+    if per_split is not None and per_split < n:
+        parts = [z2_tile_sums_reference(times[e0:e0 + per_split], f0, df, half_fdots, n_tiles,
+                                        nharm, event_chunk, sixth_fddots,
+                                        None if weights is None else weights[e0:e0 + per_split],
+                                        poly)
+                 for e0 in range(0, n, per_split)]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+    dev = times.device
     n_fdot = half_fdots.shape[0]
+    sixth = torch.zeros(1, dtype=torch.float64, device=dev) if sixth_fddots is None else sixth_fddots
     f_tiles = _f_tiles(f0, df, n_tiles, torch.float64, dev)
     j_lo = torch.arange(TRIAL_TILE, dtype=torch.float32, device=dev)
-    acc = torch.zeros(2, n_fdot, n_tiles, nharm, TRIAL_TILE, dtype=torch.float32, device=dev)
+    acc = torch.zeros(2, sixth.shape[0], n_fdot, n_tiles, nharm, TRIAL_TILE, dtype=torch.float32,
+                      device=dev)
     for e0 in range(0, n, event_chunk):
         t = times[e0:e0 + event_chunk]
-        w = torch.ones(event_chunk, dtype=torch.float32, device=dev)
+        w = (torch.ones(t.shape[0], dtype=torch.float32, device=dev) if weights is None
+             else weights[e0:e0 + event_chunk])
         if t.shape[0] < event_chunk:
             pad = event_chunk - t.shape[0]
-            w[t.shape[0]:] = 0.0
+            w = torch.cat([w, torch.zeros(pad, dtype=torch.float32, device=dev)])
             t = torch.cat([t, torch.zeros(pad, dtype=t.dtype, device=dev)])
         b = fasttrig.centered_frac(df * t).to(torch.float32)
         rows_t = fasttrig.centered_frac(f_tiles[:, None] * t[None, :]).to(torch.float32)
         tt = t * t
-        for i in range(n_fdot):
-            row_q = fasttrig.centered_frac(half_fdots[i] * tt).to(torch.float32)
-            base = rows_t + row_q  # pure f32, (n_tiles, EC)
-            phase = base[:, None, :] + j_lo[None, :, None] * b  # (n_tiles, T, EC)
-            sin1, cos1 = fasttrig.sincos_cycles(fasttrig.centered_frac(phase))
-            c, s = search.chebyshev_weighted_sums(cos1, sin1, w, nharm)  # (nharm, n_tiles, T)
-            acc[0, i] += c.transpose(0, 1)
-            acc[1, i] += s.transpose(0, 1)
-    return acc
+        for l in range(sixth.shape[0]):
+            row_r = (None if sixth_fddots is None
+                     else fasttrig.centered_frac(sixth[l] * (tt * t)).to(torch.float32))
+            for i in range(n_fdot):
+                row_q = fasttrig.centered_frac(half_fdots[i] * tt).to(torch.float32)
+                base = rows_t + row_q  # pure f32, (n_tiles, EC)
+                if row_r is not None:
+                    base = base + row_r  # the association (row_t + row_q) + row_r
+                phase = base[:, None, :] + j_lo[None, :, None] * b  # (n_tiles, T, EC)
+                frac = fasttrig.centered_frac(phase)
+                if poly:
+                    sin1, cos1 = fasttrig.sincos_cycles(frac)
+                else:
+                    theta = (2 * math.pi) * frac
+                    sin1, cos1 = torch.sin(theta), torch.cos(theta)
+                c, s = search.chebyshev_weighted_sums(cos1, sin1, w, nharm)  # (nharm, n_tiles, T)
+                acc[0, l, i] += c.transpose(0, 1)
+                acc[1, l, i] += s.transpose(0, 1)
+    return acc[:, 0] if sixth_fddots is None else acc
 
 
-def _n_split(n_blocks: int, n_chunks: int, device: torch.device) -> int:
-    """Event splits per (fdot, tile) block so the grid fills the card: about
-    four blocks of TRIAL_TILE threads per SM, never more splits than chunks."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(n_chunks, math.ceil(4 * sms / n_blocks)))
+def _check_f64_vector(x: torch.Tensor, name: str, device: torch.device) -> None:
+    if x.dtype != torch.float64 or x.dim() != 1 or not x.is_contiguous() or x.shape[0] < 1:
+        raise ValueError(f"{name} must be a non-empty contiguous 1-D float64 tensor")
+    if x.device != device:
+        raise ValueError(f"{name} must lie on the times' device")
 
 
 def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Tensor,
-                 n_tiles: int, nharm: int) -> torch.Tensor:
-    """(2, n_fdot, n_tiles, nharm, TRIAL_TILE) f32 trig sums over the grid
-    f0 + (tile*TRIAL_TILE + j_lo)*df for each fdot row: K2 on a CUDA tensor,
-    the twin on a CPU tensor."""
+                 n_tiles: int, nharm: int, *, sixth_fddots: torch.Tensor | None = None,
+                 weights: torch.Tensor | None = None, poly: bool = True,
+                 per_split: int | None = None) -> torch.Tensor:
+    """f32 trig sums over the grid f0 + (tile*TRIAL_TILE + j_lo)*df for each
+    fdot row, (2, n_fdot, n_tiles, nharm, TRIAL_TILE), or for each (fddot,
+    fdot) row of the cube, (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE),
+    when ``sixth_fddots`` (f64 fdd/6) is given: K2 on a CUDA tensor, the twin
+    on a CPU tensor.
+
+    ``weights`` (f32 per event) multiply every harmonic's terms; ``poly``
+    picks the polynomial sin/cos (True) or f32 sin/cos of 2*pi*frac;
+    ``per_split`` fixes the event split length (a multiple of EVENT_CHUNK;
+    default: enough splits to fill the card).
+    """
     if times.dtype != torch.float64 or times.dim() != 1 or not times.is_contiguous():
         raise ValueError("z2_tile_sums takes contiguous 1-D float64 times")
-    if half_fdots.dtype != torch.float64 or half_fdots.dim() != 1 or not half_fdots.is_contiguous():
-        raise ValueError("z2_tile_sums takes contiguous 1-D float64 half_fdots")
-    if half_fdots.device != times.device:
-        raise ValueError("times and half_fdots must share a device")
+    _check_f64_vector(half_fdots, "half_fdots", times.device)
+    n_fddot = 1
+    if sixth_fddots is not None:
+        _check_f64_vector(sixth_fddots, "sixth_fddots", times.device)
+        n_fddot = sixth_fddots.shape[0]
+    if weights is not None and (weights.dtype != torch.float32 or weights.shape != times.shape
+                                or not weights.is_contiguous() or weights.device != times.device):
+        raise ValueError("weights must be a contiguous float32 tensor shaped like times")
     if not 1 <= nharm <= MAX_NHARM:
         raise ValueError(f"nharm must be in [1, {MAX_NHARM}], got {nharm}")
-    if n_tiles < 1 or times.shape[0] < 1 or half_fdots.shape[0] < 1:
+    if n_tiles < 1 or times.shape[0] < 1:
         raise ValueError("empty grid or event list")
+    if n_fddot * half_fdots.shape[0] > MAX_ROWS:
+        raise ValueError(f"n_fddot * n_fdot must be <= {MAX_ROWS}")
+    if per_split is not None and (per_split < EVENT_CHUNK or per_split % EVENT_CHUNK):
+        raise ValueError(f"per_split must be a positive multiple of {EVENT_CHUNK}")
     if times.shape[0] >= 2**31 - EVENT_CHUNK:
         raise ValueError("z2_tile_sums indexes events with 32-bit ints")
     if times.device.type == "cpu":
-        return z2_tile_sums_reference(times, f0, df, half_fdots, n_tiles, nharm)
+        return z2_tile_sums_reference(times, f0, df, half_fdots, n_tiles, nharm,
+                                      sixth_fddots=sixth_fddots, weights=weights, poly=poly,
+                                      per_split=per_split)
     if times.device.type != "cuda":
         raise ValueError(f"z2_tile_sums: unsupported device {times.device}")
     n = times.shape[0]
     n_fdot = half_fdots.shape[0]
     n_chunks = -(-n // EVENT_CHUNK)
-    n_split = _n_split(n_fdot * n_tiles, n_chunks, times.device)
-    per_split = -(-n_chunks // n_split) * EVENT_CHUNK
+    if per_split is None:
+        n_split = n_split_for(n_fddot * n_fdot * n_tiles, n_chunks, times.device)
+        per_split = -(-n_chunks // n_split) * EVENT_CHUNK
     n_split = -(-n // per_split)
-    shape = (2, n_fdot, n_tiles, nharm, TRIAL_TILE)
+    shape = (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE)
     out = torch.empty(shape, dtype=torch.float32, device=times.device)
     partial = (torch.empty((n_split,) + shape, dtype=torch.float32, device=times.device)
                if n_split > 1 else out)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = _lib().z2_grid_sums(
         times.data_ptr(), n, float(f0), float(TRIAL_TILE * df), float(df),
-        half_fdots.data_ptr(), n_fdot, n_tiles, nharm, n_split, per_split,
-        partial.data_ptr(), out.data_ptr(), _stream(times),
+        half_fdots.data_ptr(), n_fdot, ptr(sixth_fddots), n_fddot, ptr(weights),
+        n_tiles, nharm, int(bool(poly)), n_split, per_split,
+        partial.data_ptr(), out.data_ptr(), stream_of(times),
     )
-    _check(rc, "z2_grid_sums")
+    check_launch(rc, "z2_grid_sums")
     LAUNCHES["z2_tile_sums"] += 1
-    return out
+    return out[:, 0] if sixth_fddots is None else out
 
 
 def flops_per_pair(nharm: int) -> int:

@@ -7,7 +7,12 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 K1 must return 524800; K2 must match its plain twin on the same card
 tensors within TestPallasZ2's rtol 2e-3 / atol 0.05 with identical argmax,
-and two runs must be bitwise equal. The device fold, fit and H-test, the
+and two runs must be bitwise equal; with weights, a fddot row and f32
+sin/cos as well; weights of 1.0 must give the unweighted sums and a zero
+fddot row the 2-D sums bit for bit. K3 must match its twin and the textbook
+Z^2 (rtol 1e-8 with f64 trig, rtol 1e-4 / atol 5e-3 with f32 trig,
+TestZ2's figures) and rerun bitwise; the streamed grids must equal the
+monolithic ones bit for bit. The device fold, fit and H-test, the
 template fit (chi2 within 1e-6 relative, parameters within 1e-6) and the
 MCMC fed the same draws (chain and log-probs within rtol 1e-10) are held
 against the same functions run on the CPU.
@@ -19,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from crimp_tpu_torch.ops import anchored, search, toafit, z2_grid
+from crimp_tpu_torch.ops import anchored, search, toafit, z2_general, z2_grid
 from crimp_tpu_torch.models import profiles
 
 torch.set_num_threads(2)
@@ -71,6 +76,106 @@ class TestKernels:
         gpu = search.PeriodSearch(t, freqs, 2, device=cuda_device).twod_ztest([-11.0, -10.0])[0]
         cpu = search.PeriodSearch(t, freqs, 2, device="cpu").twod_ztest([-11.0, -10.0])[0]
         np.testing.assert_allclose(gpu[:, 2], cpu[:, 2], rtol=2e-3, atol=0.05)
+
+
+def naive_z2(times, freqs, nharm):
+    """The reference's serial Z^2 formula (periodsearch.py:57-71), in numpy f64."""
+    out = np.zeros(len(freqs))
+    for j, f in enumerate(freqs):
+        for k in range(1, nharm + 1):
+            theta = 2 * np.pi * k * f * times
+            out[j] += np.cos(theta).sum() ** 2 + np.sin(theta).sum() ** 2
+    return out * 2.0 / len(times)
+
+
+def _z2(cs, n):
+    """(2, ..., nharm, T) sums -> Z^2 summed over the harmonic axis (-2)."""
+    c = cs.double()
+    return ((c[0] ** 2 + c[1] ** 2).sum(-2) * (2.0 / n)).cpu().numpy()
+
+
+@pytest.mark.gpu
+class TestSearchKernels:
+    @pytest.mark.parametrize("poly", [True, False])
+    def test_k2_weights_fddot_trig_mode_match_twin(self, cuda_device, poly):
+        n = 9000
+        rng = np.random.RandomState(2)
+        t = torch.as_tensor(_pulsed(n), device=cuda_device)
+        w = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=cuda_device)
+        hf = torch.tensor([-5e-11, 0.0], dtype=torch.float64, device=cuda_device)
+        sf = torch.tensor([-1e-16, 0.0, 1e-16], dtype=torch.float64, device=cuda_device) / 6.0
+        kw = dict(sixth_fddots=sf, weights=w, poly=poly)
+        got = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, 3, **kw)
+        again = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, 3, **kw)
+        ref = z2_grid.z2_tile_sums_reference(t, 0.2495, 3e-6, hf, 2, 3, **kw)
+        assert got.shape == (2, 3, 2, 2, 3, z2_grid.TRIAL_TILE)
+        assert torch.equal(got, again)
+        z, z_ref = _z2(got, n).reshape(6, -1), _z2(ref, n).reshape(6, -1)
+        np.testing.assert_allclose(z, z_ref, rtol=2e-3, atol=0.05)
+        for row in range(6):
+            assert int(np.argmax(z[row])) == int(np.argmax(z_ref[row]))
+
+    def test_k2_unit_weights_and_zero_fddot_are_bitwise_2d(self, cuda_device):
+        t = torch.as_tensor(_pulsed(20011), device=cuda_device)
+        hf = torch.tensor([-5e-11, 0.0, 5e-11], dtype=torch.float64, device=cuda_device)
+        plain = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, 5)
+        ones = torch.ones(t.shape[0], dtype=torch.float32, device=cuda_device)
+        assert torch.equal(z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, 5, weights=ones), plain)
+        zero = torch.zeros(1, dtype=torch.float64, device=cuda_device)
+        assert torch.equal(z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, 5, sixth_fddots=zero)[:, 0],
+                           plain)
+
+    @pytest.mark.parametrize("trig,poly,rtol,atol", [(torch.float64, False, 1e-8, 1e-6),
+                                                     (torch.float32, False, 1e-4, 5e-3),
+                                                     (torch.float32, True, 1e-4, 5e-3)])
+    def test_k3_matches_twin_and_naive(self, cuda_device, trig, poly, rtol, atol):
+        rng = np.random.RandomState(0)
+        times = np.sort(rng.uniform(0, 500, 2000))
+        freqs = np.linspace(0.05, 0.3, 37)
+        for nharm in (1, 2, 5, 25):
+            args = (torch.as_tensor(times, device=cuda_device), torch.as_tensor(freqs, device=cuda_device),
+                    torch.zeros(1, dtype=torch.float64, device=cuda_device),
+                    torch.zeros(1, dtype=torch.float64, device=cuda_device), nharm, trig, poly)
+            got = z2_general.general_sums(*args)
+            assert torch.equal(got, z2_general.general_sums(*args))
+            ref = z2_general.general_sums_reference(*args)
+            z = _z2(got[:, 0, 0], times.size)
+            np.testing.assert_allclose(z, _z2(ref[:, 0, 0], times.size), rtol=rtol, atol=atol)
+            if nharm <= 5:
+                np.testing.assert_allclose(z, naive_z2(times, freqs, nharm), rtol=rtol, atol=atol)
+
+    def test_k3_cube_rows_match_twin(self, cuda_device):
+        t = _pulsed(6000)
+        freqs = np.sort(np.random.RandomState(1).uniform(0.2495, 0.2505, 300))
+        got = search.z2_power_3d(t, freqs, [-1e-11, 0.0], [-1e-16, 1e-16], 3,
+                                 device=cuda_device).cpu().numpy()
+        ref = search.z2_power_3d(t, freqs, [-1e-11, 0.0], [-1e-16, 1e-16], 3, device="cpu").numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=5e-3)
+
+    @pytest.mark.parametrize("mxu", [False, True])
+    def test_streamed_is_bitwise_monolithic(self, cuda_device, mxu):
+        t = _pulsed(70000)
+        f0, df = 0.2495, 3e-6
+        fdots, fddots = [-1e-11, 0.0], [0.0, 1e-16]
+        chunk = 1 << 15
+        kw = dict(mxu=mxu) if mxu else dict(per_split=chunk)
+        mono = search.z2_power_3d_grid(t, f0, df, 300, fdots, fddots, 2, device=cuda_device, **kw)
+        strm = search.z2_power_3d_grid_streamed(t, f0, df, 300, fdots, fddots, 2, device=cuda_device,
+                                                event_chunk=chunk, mxu=mxu)
+        assert torch.equal(mono, strm)
+        mono2 = search.z2_power_2d_grid(t, f0, df, 300, fdots, 2, device=cuda_device, **kw)
+        strm2 = search.z2_power_2d_grid_streamed(t, f0, df, 300, fdots, 2, device=cuda_device,
+                                                 event_chunk=chunk, mxu=mxu)
+        assert torch.equal(mono2, strm2)
+
+    def test_periodsearch_falls_through_to_k3(self, cuda_device):
+        t = _pulsed(5000)
+        jagged = np.concatenate([np.linspace(0.2490, 0.2499, 40), np.linspace(0.2500, 0.2510, 61)])
+        z2_general.reset_launches()
+        gpu = search.PeriodSearch(t, jagged, 2, device=cuda_device).ztest()
+        assert z2_general.LAUNCHES["general_sums"] == 1
+        cpu = search.PeriodSearch(t, jagged, 2, device="cpu").ztest()
+        np.testing.assert_allclose(gpu, cpu, rtol=1e-4, atol=5e-3)
 
 
 @pytest.mark.gpu

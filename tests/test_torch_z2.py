@@ -124,12 +124,17 @@ class TestPeriodSearch:
             search.PeriodSearch(t, freqs, 4, device="cpu").htest(), h_ref, rtol=2e-3, atol=0.05)
 
     def test_unported_paths_raise(self):
+        """Slice 1 raised NotImplementedError for these; they now run through
+        the general kernel's twin and match crimp_tpu."""
         t = np.linspace(0.0, 1000.0, 64)
         jagged = np.array([0.1, 0.2, 0.35, 0.4])
-        with pytest.raises(NotImplementedError):
-            search.PeriodSearch(t, jagged, 2, device="cpu").ztest()
-        with pytest.raises(NotImplementedError):
-            search.PeriodSearch(t, np.linspace(0.1, 0.2, 10), 21, device="cpu").htest()
+        np.testing.assert_allclose(
+            search.PeriodSearch(t, jagged, 2, poly_trig=False, device="cpu").ztest(),
+            jax_search.PeriodSearch(t, jagged, 2, poly_trig=False).ztest(), rtol=1e-4, atol=5e-3)
+        freqs = np.linspace(0.1, 0.2, 10)
+        np.testing.assert_allclose(
+            search.PeriodSearch(t, freqs, 21, poly_trig=False, device="cpu").htest(),
+            jax_search.PeriodSearch(t, freqs, 21, poly_trig=False).htest(), rtol=1e-4, atol=5e-3)
 
 
 class TestHPowerSegments:
