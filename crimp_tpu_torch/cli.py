@@ -1,14 +1,18 @@
-"""Console entry points of the port. The flags mirror ``crimp_tpu.cli``, plus
-``--device`` (default: cuda, which raises when no card is present):
+"""Console entry points of the port: all 12 tools of ``crimp_tpu.cli``, with
+its flags, plus ``--device`` (default: cuda, which raises when no card is
+present) on every tool but the three in ``HOST_TOOLS``:
 
     python -m crimp_tpu_torch.cli TOOL [arguments]
 
 TOOL is one of timeintervalsfortoas, templatepulseprofile, measuretoas,
-addphasecolumn, ephemintegerrotation, phshifttotimfile, fittoas. Each tool
-returns what its pipeline returns. timeintervalsfortoas,
-ephemintegerrotation and phshifttotimfile do all their work on the host
-(as in the JAX package); they still resolve ``--device``, so every tool
-refuses to start on a machine without a card unless asked for the CPU.
+diagnosetoas, addphasecolumn, ephemintegerrotation, phshifttotimfile,
+fittoas, localephemerides, pulseprofile_plots, localephemerides_plot,
+mergeoverlappingtims. Each tool returns what its pipeline returns.
+timeintervalsfortoas, ephemintegerrotation and phshifttotimfile do all their
+work on the host (as in the JAX package); they still resolve ``--device``,
+so those tools refuse to start on a machine without a card unless asked for
+the CPU. diagnosetoas, localephemerides_plot and mergeoverlappingtims only
+read and write files, and take no ``--device``.
 """
 
 from __future__ import annotations
@@ -211,11 +215,104 @@ def fittoas(argv=None):
     )
 
 
+def diagnosetoas(argv=None):
+    parser = argparse.ArgumentParser(description="Script to create a diagnostic plot of ToAs")
+    parser.add_argument("ToAs", help="Text file of phase shifts (from measuretoas)", type=str)
+    parser.add_argument("-of", "--outputFile", help="Output HTML stem (default=ToADiagnosticsPlot)", type=str, default="ToADiagnosticsPlot")
+    args = parser.parse_args(argv)
+
+    from crimp_tpu_torch.pipelines.diagnose import diagnose_toas
+
+    return diagnose_toas(args.ToAs, args.outputFile)
+
+
+def localephemerides(argv=None):
+    parser = argparse.ArgumentParser(description="Generate local [F0, F1] ephemerides in a moving-average fashion")
+    parser.add_argument("timfile", help=".tim TOA file", type=str)
+    parser.add_argument("parfile", help="A tempo2 .par file", type=str)
+    parser.add_argument("-id", "--interval_days", help="Window length (days)", type=float, default=90.0)
+    parser.add_argument("-jd", "--jump_days", help="Window shift (days)", type=float, default=15.0)
+    parser.add_argument("-ts", "--t_start", help="Start from (MJD)", type=float, default=None)
+    parser.add_argument("-te", "--t_end", help="Stop at (MJD)", type=float, default=None)
+    parser.add_argument("-mi", "--min_interval", help="Minimum ToA span per window (days)", type=float, default=45)
+    _bool_flag(parser, "-dp", "--debug_with_plots", help="Per-window residual + corner plots")
+    parser.add_argument("-of", "--outputfile", help="Output table stem (default=local_ephemerides)", type=str, default="local_ephemerides")
+    parser.add_argument("-ep", "--ephem_plot", help="Ephemerides plot stem (default=None)", type=str, default=None)
+    _bool_flag(parser, "-cl", "--clobber", help="Override output table")
+    _add_common(parser)
+    args = parser.parse_args(argv)
+    resolve_device(args.device)
+    _setup_logging(args, args.outputfile if args.outputfile else "local_ephemerides")
+
+    from crimp_tpu_torch.pipelines.local_ephem import generate_local_ephemerides
+
+    return generate_local_ephemerides(
+        args.timfile, args.parfile, args.interval_days, args.jump_days,
+        args.t_start, args.t_end, args.min_interval, args.debug_with_plots,
+        args.outputfile, args.ephem_plot, args.clobber, device=args.device,
+    )
+
+
+def pulseprofile_plots(argv=None):
+    parser = argparse.ArgumentParser(description="YAML-driven pulse-profile visualization suite")
+    parser.add_argument("eventfile", help="Event file", type=str)
+    parser.add_argument("parfile", help="A tempo2 .par file", type=str)
+    parser.add_argument("yamlconfig", help="YAML listing plots to generate", type=str)
+    parser.add_argument("-el", "--enelow", help="Low energy filter, default=0.3", type=float, default=0.3)
+    parser.add_argument("-eh", "--enehigh", help="High energy filter, default=10", type=float, default=10)
+    parser.add_argument("-ts", "--tstart", help="Events from tstart (MJD)", type=float, default=40000)
+    parser.add_argument("-te", "--tend", help="Events before tend (MJD)", type=float, default=70000)
+    parser.add_argument("-op", "--outputplot", help="Output plot stem", type=str, default=None)
+    _add_common(parser, verbosity=False)
+    args = parser.parse_args(argv)
+    resolve_device(args.device)
+
+    from crimp_tpu_torch.pipelines.plots import prep_for_plotting, run_plots_from_yaml
+
+    df, _ = prep_for_plotting(args.eventfile, args.parfile, args.enelow, args.enehigh, args.tstart, args.tend,
+                              device=args.device)
+    return run_plots_from_yaml(args.yamlconfig, df)
+
+
+def localephemerides_plot(argv=None):
+    parser = argparse.ArgumentParser(description="Plot local ephemerides")
+    parser.add_argument("localephem", help=".txt local-ephemerides table", type=str)
+    parser.add_argument("-ts", "--t_start", help="Start from (MJD)", type=float, default=None)
+    parser.add_argument("-te", "--t_end", help="Stop at (MJD)", type=float, default=None)
+    parser.add_argument("-gl", "--glitches", help="Glitch MJD markers", type=float, nargs="+", default=None)
+    parser.add_argument("-ep", "--ephem_plot", help="Output plot stem (default=None)", type=str, default=None)
+    args = parser.parse_args(argv)
+
+    from crimp_tpu_torch.pipelines.plot_local_ephem import plot_local_ephemerides, read_local_ephemerides
+
+    table = read_local_ephemerides(args.localephem, args.t_start, args.t_end)
+    return plot_local_ephemerides(table, glitches=args.glitches, plotname=args.ephem_plot)
+
+
+def mergeoverlappingtims(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Merge .tim files with pulse numbers (-pn) using overlapping TOAs as anchors."
+    )
+    parser.add_argument("timfiles", nargs="+", help=".tim files, or .txt list files of .tim names", type=str)
+    parser.add_argument("-ot", "--outputtim", help="Output prefix <outputtim>.tim (default=all_merged)", type=str, default="all_merged")
+    _bool_flag(parser, "-cl", "--clobber", help="Override output .tim file")
+    args = parser.parse_args(argv)
+
+    from crimp_tpu_torch.pipelines.merge_tim import merge_tim_files, write_merged_tim
+
+    merged = merge_tim_files(args.timfiles)
+    write_merged_tim(merged, args.outputtim, clobber=args.clobber)
+    return merged
+
+
 _COMMANDS = {
     f.__name__: f
-    for f in (timeintervalsfortoas, templatepulseprofile, measuretoas, addphasecolumn,
-              ephemintegerrotation, phshifttotimfile, fittoas)
+    for f in (timeintervalsfortoas, templatepulseprofile, measuretoas, diagnosetoas, addphasecolumn,
+              ephemintegerrotation, phshifttotimfile, fittoas, localephemerides, pulseprofile_plots,
+              localephemerides_plot, mergeoverlappingtims)
 }
+# the tools that read and write files only, with no --device
+HOST_TOOLS = ("diagnosetoas", "localephemerides_plot", "mergeoverlappingtims")
 
 
 def main(argv=None) -> None:

@@ -1,4 +1,4 @@
-"""YAML configuration: fit initial guesses / box priors.
+"""YAML configuration: fit initial guesses / box priors, and plot lists.
 
 The port's own copy of ``crimp_tpu/io/yamlcfg.py`` (schema of CRIMP's
 utilities_fittoas.py:314-390): per parameter either ``[low, high]``
@@ -28,6 +28,15 @@ class Prior:
                 if not (lo < value < hi):
                     return -np.inf
         return 0.0
+
+
+def load_yaml(path: str):
+    """A YAML file's document (``yaml.safe_load``; ``{}`` for an empty file),
+    e.g. the plot list of ``pulseprofile_plots``."""
+    import yaml
+
+    with open(path, "r") as fh:
+        return yaml.safe_load(fh) or {}
 
 
 def load_prior(path: str) -> Prior:

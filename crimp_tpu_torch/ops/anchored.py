@@ -14,9 +14,10 @@ absolute phases in f64 leaves no margin. The split:
  device (torch f64, all quantities small):
    folded = frac( const[a] + Horner_b(d) + G(d; a) + W(d; a) )
 
-``fold_segments`` ships without the delta-fold engine, which matches the
-JAX default (its exact branch). ``fold_chunked`` folds an arbitrary MJD
-array through per-chunk anchors (the template pipeline, ``fold_phases``).
+``fold_segments`` takes the delta-fold engine (``ops/deltafold.py``) with
+``delta_fold=1``; the default 0 is the JAX default, the exact branch.
+``fold_chunked`` folds an arbitrary MJD array through per-chunk anchors
+(the template pipeline, ``fold_phases``).
 """
 
 from __future__ import annotations
@@ -247,13 +248,19 @@ def anchored_fold(am: AnchoredModel, delta: torch.Tensor, anchor_idx: torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None):
+def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: int = 0,
+                  budget: float = 1e-9, fold_cache="mem", cache_tag: str | None = None):
     """Anchored fold of ragged per-segment event times in ONE device call.
 
     One anchor per segment (default: each segment's midpoint
     t0 + (t_end - t0)/2, the reference's ToA epoch), events concatenated
     with a per-event anchor index. Returns (seg_phase_list, t_ref): numpy
     cycle-folded [0,1) phases split back per segment, plus the anchors.
+
+    ``delta_fold=1`` routes the fold through the delta-fold engine
+    (``ops/deltafold.py``: the fold cache ``fold_cache``, namespaced by
+    ``cache_tag``, and K4 refolds for linear updates within ``budget``
+    cycles); with the default 0 the engine is never consulted.
     """
     seg_times = [np.atleast_1d(np.asarray(t, dtype=np.float64)) for t in seg_times]
     if t_ref_mjd is None:
@@ -268,13 +275,25 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None):
     tm = timing.resolve(timMod)
     sizes = [t.size for t in seg_times]
     anchor_idx = np.repeat(np.arange(len(seg_times)), sizes)
-    delta = anchor_deltas(np.concatenate(seg_times), t_ref, anchor_idx)
-    am = prepare_anchors(tm, t_ref).to(dev)
-    folded = anchored_fold(
-        am,
-        torch.as_tensor(delta, device=dev),
-        torch.as_tensor(anchor_idx, device=dev),
-    ).cpu().numpy()
+    times_cat = np.concatenate(seg_times)
+    delta = anchor_deltas(times_cat, t_ref, anchor_idx)
+
+    def exact():
+        am = prepare_anchors(tm, t_ref).to(dev)
+        return anchored_fold(
+            am,
+            torch.as_tensor(delta, device=dev),
+            torch.as_tensor(anchor_idx, device=dev),
+        ).cpu().numpy()
+
+    if delta_fold:
+        from crimp_tpu_torch.ops import deltafold
+
+        folded, _ = deltafold.cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact,
+                                          budget=budget, tag=cache_tag, fold_cache=fold_cache,
+                                          device=dev)
+    else:
+        folded = exact()
     return list(np.split(folded, np.cumsum(sizes)[:-1])), t_ref
 
 

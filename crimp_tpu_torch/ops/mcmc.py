@@ -22,10 +22,15 @@ The sampler has two layers:
 
 The JAX package draws from its own key sequence inside ``lax.scan``; feeding
 those draws to ``ensemble_sample_draws`` reproduces its chain.
+
+``delta_logprob`` is the delta-basis likelihood shared by the fit's
+``mcmc_delta`` path and the batched local-ephemeris windows: a proposal's
+model is one ``basis @ theta`` product, masked for padded rows.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +49,28 @@ class Draws(NamedTuple):
     partner: torch.Tensor  # int64: first half in [0, W - W//2), second in [0, W//2)
     stretch_u: torch.Tensor  # f64 uniforms on [0, 1) -> stretch factor z
     accept_u: torch.Tensor  # f64 uniforms on [0, 1) -> Metropolis test
+
+
+def delta_logprob(theta: torch.Tensor, data: dict) -> torch.Tensor:
+    """Linear-regime Gaussian log-probability ``mu = basis @ theta``, batched.
+
+    ``data`` holds ``basis`` (..., N, ndim), ``y``, ``err``, ``mask`` (..., N)
+    and ``lo``/``hi`` (..., ndim), where ``...`` are the leading problem axes
+    (windows, sources) or none. ``theta`` is (..., W, ndim) and the result
+    (..., W). The model is mean-subtracted over the valid (mask == 1) rows
+    and compared with the (already centered) data; rows with mask == 0 are
+    inert padding and add exactly +0.0. Box priors gate the result to -inf
+    outside (lo, hi). No host syncs: it runs inside the sampler's CUDA graphs.
+    """
+    basis, y, err, mask = data["basis"], data["y"], data["err"], data["mask"]
+    lo, hi = data["lo"].unsqueeze(-2), data["hi"].unsqueeze(-2)
+    in_box = torch.all((theta > lo) & (theta < hi), dim=-1)
+    mu = torch.matmul(theta, basis.transpose(-1, -2))  # (..., W, N)
+    mask = mask.unsqueeze(-2)
+    mu = mu - torch.sum(mu * mask, dim=-1, keepdim=True) / torch.sum(mask, dim=-1, keepdim=True)
+    resid = (y.unsqueeze(-2) - mu) / err.unsqueeze(-2)
+    nll = 0.5 * torch.sum(mask * (resid**2 + torch.log(2 * math.pi * err.unsqueeze(-2) ** 2)), dim=-1)
+    return torch.where(in_box, -nll, -math.inf)
 
 
 def ensemble_draws(steps: int, n_walkers: int, seed: int = 0, batch_shape=(), device=None) -> Draws:

@@ -15,8 +15,9 @@ Counterpart of ``crimp_tpu/ops/pallas_z2.py``. Two kernels live in
   f32 sin/cos of 2*pi*frac), runs the Chebyshev recurrence to ``nharm`` and
   returns the (optionally weighted) sums C_k, S_k.
 
-``build()`` compiles every source of ``csrc/`` (this one and K3's
-``z2_general.cu``), one ``nvcc`` per source, all started together.
+``build()`` compiles every source of ``csrc/`` (this one, K3's
+``z2_general.cu`` and K4's ``deltafold.cu``), one ``nvcc`` per source, all
+started together.
 
 Each wrapper takes a CPU tensor to its plain twin (``probe_reference``,
 ``z2_tile_sums_reference``: the same math in torch ops). A CUDA tensor
@@ -49,7 +50,8 @@ MAX_NHARM = 20  # K2 keeps 4*nharm f32 accumulators per thread in registers
 MAX_ROWS = 65535  # n_fddot * n_fdot rides gridDim.y
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu"}
+SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu",
+           "deltafold": CSRC / "deltafold.cu"}
 SOURCE = SOURCES["z2_grid"]
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

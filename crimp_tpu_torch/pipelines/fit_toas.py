@@ -10,8 +10,10 @@ statistics, residual plots, and the posterior corner plot.
 
 The MCMC runs on the device: the exact log-probability below scores a
 whole half-ensemble at once, the walker axis riding the leading batch axis
-of the timing fields (``ops.fold``). The delta-basis likelihood waits for
-the delta-fold engine: asking for it raises ``NotImplementedError``.
+of the timing fields (``ops.fold``). With ``mcmc_delta=1`` a linear free
+set scores through the delta-basis likelihood (``make_logprob_delta``,
+``ops.mcmc.delta_logprob``), and ``delta_fold=1`` takes the post-fit
+residuals through one basis product (``fit_utils.model_phase_residuals_delta``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from crimp_tpu_torch.io import tim as tim_io
 from crimp_tpu_torch.io.parfile import get_parameter_value
 from crimp_tpu_torch.io.yamlcfg import Prior, load_prior
 from crimp_tpu_torch.models import timing
+from crimp_tpu_torch.ops import deltafold
 from crimp_tpu_torch.ops import fold as fold_ops
 from crimp_tpu_torch.ops import mcmc as mcmc_ops
 from crimp_tpu_torch.pipelines import fit_utils
@@ -218,6 +221,73 @@ def make_logprob(parfile: dict, keys: list[str], prior: Prior, x, y, yerr, devic
     return log_prob
 
 
+def make_logprob_delta(parfile: dict, keys: list[str], prior: Prior, x, y, yerr,
+                       budget: float = deltafold.DEFAULT_BUDGET, device=None):
+    """(data, info) for the delta-basis likelihood ``mcmc.delta_logprob``, or
+    (None, info) when the guard refuses the free set.
+
+    Within the linear regime the delta-parameterized model is exactly
+    ``mu = B_free @ theta`` against the delta-fold basis of the ToAs
+    (``fit_utils.delta_basis``), so a half-ensemble scores as one (walkers x
+    ndim) @ (ndim x nToA) product. ``info["reason"]`` says why a set is
+    refused: ``nonlinear_free_param`` (epochs, GLTD, waves),
+    ``unbounded_prior`` (a free key without a finite box) or
+    ``error_bound_exceeds_budget`` (the f64 error bound over the walker box
+    extent is above ``budget`` cycles). The tensors lie on ``device``
+    (default cuda).
+    """
+    info: dict = {"eligible": False, "reason": None}
+    cols = fit_utils.linear_key_columns(parfile, keys)
+    if not keys or cols is None:
+        info["reason"] = "nonlinear_free_param"
+        return None, info
+
+    lo = np.asarray([prior.bounds.get(k, (-np.inf, np.inf))[0] for k in keys])
+    hi = np.asarray([prior.bounds.get(k, (-np.inf, np.inf))[1] for k in keys])
+    if not (np.all(np.isfinite(lo)) and np.all(np.isfinite(hi))):
+        info["reason"] = "unbounded_prior"
+        return None, info
+
+    dev = resolve_device(device)
+    fit_dict, full_dict = fit_utils.inject_free_params(parfile, np.zeros(len(keys)), keys)
+    fit_tm = timing.from_dict(fit_dict)
+    full_tm = timing.from_dict(full_dict)
+    t = np.atleast_1d(np.asarray(x, dtype=np.float64))
+    b, colmax = fit_utils.delta_basis(fit_tm, t, device=dev)
+
+    # the worst-case |theta| over the prior box: outside it the log-prob is
+    # -inf whatever the model, so the box extent bounds every product the
+    # sampler trusts
+    dp_box = np.zeros(deltafold.n_params(fit_tm.n_glitch))
+    dp_box[cols] = np.maximum(np.abs(lo), np.abs(hi))
+    bound = deltafold.error_bound_cycles(colmax, dp_box)
+    info.update(bound_cycles=bound, budget_cycles=float(budget), nonlinear_sha=deltafold.nonlinear_sha(fit_tm),
+                n_toas=int(t.size), ndim=len(keys))
+    if bound > budget:
+        info["reason"] = "error_bound_exceeds_budget"
+        return None, info
+
+    # center the data against the frozen whitening waves, so the likelihood
+    # matches the exact path's center(B @ theta + waves)
+    y_c = np.asarray(y, dtype=float)
+    y_c = y_c - y_c.mean()
+    if full_tm.n_wave:
+        w = fold_ops.wave_phase(full_tm, torch.as_tensor(t)).numpy()
+        y_c = y_c - (w - w.mean())
+
+    info["eligible"] = True
+    t64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=dev)  # noqa: E731
+    data = {
+        "basis": b[:, cols].contiguous(),
+        "y": t64(y_c),
+        "err": t64(yerr),
+        "mask": torch.ones(t.size, dtype=torch.float64, device=dev),
+        "lo": t64(lo),
+        "hi": t64(hi),
+    }
+    return data, info
+
+
 def run_mcmc(
     x,
     y,
@@ -233,23 +303,25 @@ def run_mcmc(
     flat_npy: str | None = None,
     progress: bool = True,
     seed: int = 0,
-    mcmc_delta: int | None = None,
+    mcmc_delta: int = 0,
     device=None,
+    budget: float = deltafold.DEFAULT_BUDGET,
+    draws: mcmc_ops.Draws | None = None,
 ):
-    """Ensemble-MCMC posterior sampling on ``device`` (default cuda) with
-    the exact likelihood (replaces emcee; CRIMP fit_toas.py:140-202).
+    """Ensemble-MCMC posterior sampling on ``device`` (default cuda)
+    (replaces emcee; CRIMP fit_toas.py:140-202).
 
     The initial ensemble is drawn as in the JAX package (numpy's
     ``default_rng(seed)``, uniform in the prior box); the sampler's draws
-    come from a ``torch.Generator`` seeded from ``seed``. ``mcmc_delta``
-    (the delta-basis likelihood) is not ported: a truthy value raises.
+    come from a ``torch.Generator`` seeded from ``seed``, or are ``draws``
+    when given (fed random numbers, e.g. the JAX package's). With
+    ``mcmc_delta=1`` proposals score through the delta-basis likelihood when
+    ``make_logprob_delta`` admits the free set within ``budget``; a refused
+    set takes the exact likelihood, as in the JAX package. A failure on the
+    delta path raises.
 
     Returns (chain, flat, summaries) as numpy."""
-    if mcmc_delta:
-        raise NotImplementedError(
-            "the delta-basis MCMC likelihood (mcmc_delta) is not ported yet: it comes "
-            "with the delta-fold engine (ROADMAP queue A, item 11)"
-        )
+    dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     ndim = len(keys)
     p0 = np.empty((walkers, ndim))
@@ -257,10 +329,23 @@ def run_mcmc(
         lo, hi = prior.bounds[name]
         p0[:, i] = rng.uniform(lo, hi, size=walkers)
 
-    log_prob_fn, lp_data = make_logprob_parts(init_parfile, keys, prior, x, y, yerr, device=device)
-    chain_t, lps_t = mcmc_ops.ensemble_sample(
-        log_prob_fn, p0, steps, seed, data=lp_data, device=lp_data["x"].device
-    )
+    log_prob_fn, lp_data = None, None
+    if mcmc_delta:
+        lp_data, delta_info = make_logprob_delta(init_parfile, keys, prior, x, y, yerr, budget=budget,
+                                                 device=dev)
+        if lp_data is None:
+            logger.info("delta-basis MCMC refused (%s); using the exact likelihood", delta_info["reason"])
+        else:
+            log_prob_fn = mcmc_ops.delta_logprob
+    if log_prob_fn is None:
+        log_prob_fn, lp_data = make_logprob_parts(init_parfile, keys, prior, x, y, yerr, device=dev)
+    if draws is None:
+        chain_t, lps_t = mcmc_ops.ensemble_sample(log_prob_fn, p0, steps, seed, data=lp_data, device=dev)
+    else:
+        fed = mcmc_ops.Draws(*(d.to(dev) for d in draws))
+        chain_t, lps_t = mcmc_ops.ensemble_sample_draws(
+            log_prob_fn, torch.as_tensor(p0, device=dev), fed, data=lp_data,
+            graph_steps=mcmc_ops.GRAPH_STEPS if dev.type == "cuda" else 0)
     chain = chain_t.cpu().numpy()
     lps = lps_t.cpu().numpy()
     if chain_npy:
@@ -374,11 +459,18 @@ def fit_toas(
     residual_plot: str | None = None,
     seed: int = 0,
     device=None,
+    mcmc_delta: int = 0,
+    delta_fold: int = 0,
+    budget: float = deltafold.DEFAULT_BUDGET,
 ) -> dict:
     """Full fit pipeline; returns {'keys', 'values', 'stats', ...}.
 
     ``device`` (default cuda) runs the ToA fold and the MCMC; the MLE and
     the post-fit residuals run on the host, as in the JAX package.
+    ``mcmc_delta=1`` samples a linear free set with the delta-basis
+    likelihood; ``delta_fold=1`` takes the post-fit residuals of a linear
+    free set through one basis product on ``device`` (both within
+    ``budget`` cycles; the JAX package's defaults are off).
     ``mcmc_seconds`` is the wall time of ``run_mcmc`` (None for the MLE).
     """
     dev = resolve_device(device)
@@ -404,7 +496,7 @@ def fit_toas(
             toas_pre_fit["ToA"], toas_pre_fit["phase"], toas_pre_fit["phase_err_cycle"],
             init_par, keys, prior, steps=mcmc_steps, burn=mcmc_burn, walkers=mcmc_walkers,
             corner_pdf=corner_plot_path, chain_npy=chain_npy, flat_npy=flat_npy, seed=seed,
-            device=dev,
+            mcmc_delta=mcmc_delta, device=dev, budget=budget,
         )
         mcmc_seconds = time.perf_counter() - t0
         logger.info("MCMC: %d steps x %d walkers in %.3f s (%.1f steps/s) on %s",
@@ -438,7 +530,13 @@ def fit_toas(
         source_label = "Maximum Likelihood Estimation"
         mcmc_seconds = None
 
-    post_fit = fit_utils.model_phase_residuals(toas_pre_fit["ToA"], init_par, best_vec, keys)
+    # the delta engine serves a linear free set as one basis product; None
+    # (off, non-linear set, bound over budget) takes the exact host path
+    post_fit = fit_utils.model_phase_residuals_delta(
+        toas_pre_fit["ToA"], init_par, best_vec, keys, cfg={"delta_fold": delta_fold, "budget": budget},
+        device=dev)
+    if post_fit is None:
+        post_fit = fit_utils.model_phase_residuals(toas_pre_fit["ToA"], init_par, best_vec, keys)
     if residual_plot is not None:
         suffix = f"_{best_fit}" if mcmc else ""
         plot_residuals(toas_pre_fit, post_fit, residual_plot + suffix)

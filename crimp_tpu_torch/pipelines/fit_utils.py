@@ -1,8 +1,8 @@
 """Timing-model fitting support: free-parameter bookkeeping and the
 delta-parameterization (host side).
 
-Port of the exact part of ``crimp_tpu/pipelines/fit_utils.py`` (semantics
-of CRIMP's utilities_fittoas.py:14-293):
+Port of ``crimp_tpu/pipelines/fit_utils.py`` (semantics of CRIMP's
+utilities_fittoas.py:14-293):
 
 - free parameters are the .par entries with fit flag 1; a flagged WAVE_OM
   expands to every WAVEk_A / WAVEk_B coefficient;
@@ -16,7 +16,8 @@ of CRIMP's utilities_fittoas.py:14-293):
   evaluated on the host through the longdouble Taylor of ``ops.anchored``.
 
 The delta-fold fast path (``linear_key_columns``, ``delta_basis``,
-``model_phase_residuals_delta``) comes with the delta-fold engine.
+``model_phase_residuals_delta``) evaluates linear free sets as one basis
+product on the device (``ops/deltafold.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import copy
 import re
 
 import numpy as np
+import torch
 
 from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.ops import anchored
@@ -179,6 +181,101 @@ def model_phase_residuals(x_mjd, timmodel: dict, pvec, keys: list[str]) -> np.nd
             + anchored._host_wave_phase(timing.from_dict(wave_dict), t)
         )
     phases = np.asarray(phases, dtype=np.float64)
+    return phases - np.mean(phases)
+
+
+_LINEAR_F_RE = re.compile(r"^F(\d+)$")
+_LINEAR_GL_RE = re.compile(r"^(GLPH|GLF0D|GLF0|GLF1|GLF2)_(\S+)$")
+_GL_COL = {"GLPH": 0, "GLF0": 1, "GLF1": 2, "GLF2": 3, "GLF0D": 4}
+
+
+def linear_key_columns(timmodel: dict, keys: list[str]) -> list[int] | None:
+    """Delta-fold basis column per free key, or None if the set is not linear.
+
+    F0..F12 map to columns 0..12 and the per-glitch [GLPH, GLF0, GLF1, GLF2,
+    GLF0D] amplitudes to the glitch blocks of ``ops/deltafold.py`` in GLEP
+    order. Any other key (epochs, GLTD, waves, a glitch suffix with no
+    GLEP) returns None, and callers take the exact path.
+    """
+    from crimp_tpu_torch.ops import deltafold
+
+    gids = [mm.group(1) for k in timmodel if (mm := re.match(r"GLEP_(\S+)$", k))]
+    cols: list[int] = []
+    for key in keys:
+        m = _LINEAR_F_RE.match(key)
+        if m:
+            idx = int(m.group(1))
+            if idx >= timing.N_FREQ_TERMS:
+                return None
+            cols.append(idx)
+            continue
+        m = _LINEAR_GL_RE.match(key)
+        if m:
+            if m.group(2) not in gids:
+                return None
+            cols.append(timing.N_FREQ_TERMS + deltafold.N_GLITCH_AMP * gids.index(m.group(2))
+                        + _GL_COL[m.group(1)])
+            continue
+        return None
+    return cols
+
+
+def delta_basis(fit_tm, x_mjd, device=None):
+    """(N, n_params) delta-fold basis anchored at PEPOCH, on ``device``
+    (default cuda), with the fit path's conventions: one anchor and
+    ``wave_in_f0=False`` (whitening waves stay frozen at their full values).
+
+    Returns (basis tensor, colmax numpy array of the per-column max |B|).
+    """
+    from crimp_tpu_torch.ops import deltafold
+
+    t = np.atleast_1d(np.asarray(x_mjd, dtype=np.float64))
+    pepoch = float(fit_tm.pepoch)
+    delta_sec = np.asarray(
+        (np.asarray(t, dtype=np.longdouble) - np.longdouble(pepoch)) * np.longdouble(anchored.SECONDS_PER_DAY),
+        dtype=np.float64,
+    )
+    fb = deltafold.build_basis(fit_tm, np.asarray([pepoch]), delta_sec, np.zeros(t.size, dtype=np.int64),
+                               wave_in_f0=False, device=device)
+    return fb.b, fb.colmax
+
+
+def model_phase_residuals_delta(x_mjd, timmodel: dict, pvec, keys: list[str], cfg: dict | None = None,
+                                device=None) -> np.ndarray | None:
+    """Delta-fold fast path for ``model_phase_residuals``: ``B @ dp`` as one
+    f64 product on ``device`` (default cuda), frozen whitening waves added on
+    the host.
+
+    ``cfg`` is ``{"delta_fold": 0/1, "budget": cycles}`` (default off, as in
+    the JAX package). Returns None when off, when a free key is not linear
+    (epochs, GLTD, waves) or when the error bound exceeds the budget; the
+    caller then takes the exact host path.
+    """
+    from crimp_tpu_torch.ops import deltafold
+
+    t = np.atleast_1d(np.asarray(x_mjd, dtype=np.float64))
+    if cfg is None:
+        cfg = {"delta_fold": 0, "budget": deltafold.DEFAULT_BUDGET}
+    if not cfg["delta_fold"] or not keys:
+        return None
+    cols = linear_key_columns(timmodel, keys)
+    if cols is None:
+        return None
+
+    fit_dict, full_dict = inject_free_params(timmodel, pvec, keys)
+    # deltas evaluate on the fit dict (base epochs, GLTD zeroed in delta
+    # space), waves frozen at their full values
+    fit_tm = timing.from_dict(fit_dict)
+    dp = np.zeros(deltafold.n_params(fit_tm.n_glitch))
+    dp[cols] = np.asarray(pvec, dtype=np.float64)
+
+    b, colmax = delta_basis(fit_tm, t, device=device)
+    if deltafold.error_bound_cycles(colmax, dp) > cfg["budget"]:
+        return None
+    phases = (b @ torch.as_tensor(dp, device=b.device)).cpu().numpy()
+    full_tm = timing.from_dict(full_dict)
+    if full_tm.n_wave:
+        phases = phases + np.asarray(anchored._host_wave_phase(full_tm, t), dtype=np.float64)
     return phases - np.mean(phases)
 
 

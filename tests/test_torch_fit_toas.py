@@ -7,7 +7,7 @@ whole through the port's CLI on the CPU.
   1e-12 relative of crimp_tpu's, CHI2R and NTOA equal;
 - load_toas_for_fit and add_phasewrap equal;
 - MCMC at 600 steps x 16 walkers covers the truth within 5e-11 Hz;
-  mcmc_delta=1 raises NotImplementedError;
+  mcmc_delta=1 samples through the delta-basis likelihood;
 - steps 1-4 of tests/test_workflows.py::TestFullJourney::test_campaign_chain
   (intervals -> template -> ToAs + .tim -> MLE) with its physical checks.
 """
@@ -147,13 +147,18 @@ class TestMCMC:
         assert result["keys"] == ["F0"] and result["stats"]["dof"] == 39
 
     def test_delta_likelihood_is_not_ported(self, fixture):
+        """The delta-basis likelihood is ported now: mcmc_delta=1 samples the
+        {F0} set through it (tests/test_torch_mcmc_delta.py holds it against
+        crimp_tpu)."""
         _, par_base, tim_path, _ = fixture
         toas = fit_toas.load_toas_for_fit(tim.read_tim(tim_path), read_timing_model(par_base)[2],
                                           device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fit_toas.run_mcmc(toas["ToA"], toas["phase"], toas["phase_err_cycle"],
-                              read_timing_model(par_base)[2], ["F0"],
-                              Prior({"F0": (-1e-8, 1e-8)}, {}), steps=10, mcmc_delta=1, device="cpu")
+        args = (toas["ToA"], toas["phase"], toas["phase_err_cycle"], read_timing_model(par_base)[2], ["F0"],
+                Prior({"F0": (-1e-8, 1e-8)}, {}))
+        data, info = fit_toas.make_logprob_delta(*args[3:], *args[:3], device="cpu")
+        assert info["eligible"] and data["basis"].shape == (40, 1)
+        chain, _, _ = fit_toas.run_mcmc(*args, steps=10, walkers=8, burn=2, mcmc_delta=1, device="cpu")
+        assert chain.shape == (10, 8, 1) and np.all(np.abs(chain) < 1e-8)
 
 
 class TestWorkedExample:
@@ -224,8 +229,10 @@ class TestWorkedExample:
             "ephemintegerrotation": ["58144.3", PAR],
             "phshifttotimfile": ["ToAs.txt", PAR],
             "fittoas": ["toas.tim", PAR, "out.par"],
+            "localephemerides": ["toas.tim", PAR],
+            "pulseprofile_plots": [FITS, PAR, "plots.yaml"],
         }
-        assert set(args) == set(cli._COMMANDS)
+        assert set(args) == set(cli._COMMANDS) - set(cli.HOST_TOOLS)
         for name, argv in args.items():
             with pytest.raises(RuntimeError, match="CUDA"):
                 cli._COMMANDS[name](argv)

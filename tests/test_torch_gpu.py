@@ -15,7 +15,10 @@ TestZ2's figures) and rerun bitwise; the streamed grids must equal the
 monolithic ones bit for bit. The device fold, fit and H-test, the
 template fit (chi2 within 1e-6 relative, parameters within 1e-6) and the
 MCMC fed the same draws (chain and log-probs within rtol 1e-10) are held
-against the same functions run on the CPU.
+against the same functions run on the CPU. K4, the delta-fold refold, must
+equal its twin bit for bit at P = 13 and 23, batched rows the solo refolds
+and a split of the events the whole run, must refuse malformed operands, and
+the engine's delta mode must lie within 1e-8 cycles of an exact fold.
 """
 
 import pathlib
@@ -274,3 +277,89 @@ class TestWorkedExampleOnCard:
         graphed = mcmc.ensemble_sample_draws(fn, p0, draws, data=data, graph_steps=100)
         assert torch.equal(eager[0], graphed[0]) and torch.equal(eager[1], graphed[1])
         assert len(torch.unique(graphed[0])) > 100
+
+
+def _refold_operands(dev, n_events, n_glitch, seed=0):
+    """Phases of a fold and the delta-fold basis of tests/test_deltafold.py's
+    model (n_glitch 0 or 2), with an update touching every column group."""
+    from crimp_tpu_torch.ops import deltafold
+
+    pars = {"PEPOCH": 58359.55765869704, "F0": 0.14328254547263483, "F1": -9.746993965547238e-15}
+    if n_glitch:
+        pars.update({"GLEP_1": 58400.0, "GLPH_1": 0.01, "GLF0_1": 3e-8, "GLF1_1": -1e-15, "GLF0D_1": 2e-8,
+                     "GLTD_1": 40.0, "GLEP_2": 58600.0, "GLF0_2": 1e-8})
+    rng = np.random.default_rng(seed)
+    segs = [np.sort(58320.0 + 120.0 * i + rng.uniform(0.0, 100.0, n_events // 4)) for i in range(4)]
+    ph, t_ref = anchored.fold_segments(pars, segs, device=dev)
+    sizes = [s.size for s in segs]
+    idx = np.repeat(np.arange(4), sizes)
+    delta = anchored.anchor_deltas(np.concatenate(segs), t_ref, idx)
+    fb = deltafold.build_basis(pars, t_ref, delta, idx, device=dev)
+    dp = np.zeros(deltafold.n_params(n_glitch))
+    dp[:3] = [3e-10, 2e-17, 1e-25]
+    if n_glitch:
+        dp[[13, 14, 17, 19]] = [1e-3, 5e-10, 1e-9, -3e-10]
+    return torch.as_tensor(np.concatenate(ph), device=dev), fb.b, torch.as_tensor(dp, device=dev)
+
+
+@pytest.mark.gpu
+class TestRefoldKernel:
+    @pytest.mark.parametrize("n_glitch", [0, 2])
+    def test_k4_bitwise_twin(self, cuda_device, n_glitch):
+        from crimp_tpu_torch.ops import deltafold
+
+        folded, basis, dp = _refold_operands(cuda_device, 40000, n_glitch)
+        assert basis.shape[1] == (13 if n_glitch == 0 else 23)
+        deltafold.reset_launches()
+        got = deltafold.refold(folded, basis, dp)
+        assert deltafold.LAUNCHES["refold"] == 1
+        assert torch.equal(got, deltafold.refold_reference(folded, basis, dp))
+        assert torch.equal(got.cpu(), deltafold.refold(folded.cpu(), basis.cpu(), dp.cpu()))
+
+    def test_batched_equals_solo_and_split_equals_whole(self, cuda_device):
+        from crimp_tpu_torch.ops import deltafold
+
+        ops = [_refold_operands(cuda_device, n, g, seed=s) for n, g, s in ((40000, 2, 1), (30001, 0, 2),
+                                                                         (12345, 2, 3))]
+        n_ev, n_par = max(o[0].shape[0] for o in ops), max(o[1].shape[1] for o in ops)
+        folded = torch.zeros(3, n_ev, dtype=torch.float64, device=cuda_device)
+        basis = torch.zeros(3, n_ev, n_par, dtype=torch.float64, device=cuda_device)
+        dp = torch.zeros(3, n_par, dtype=torch.float64, device=cuda_device)
+        for r, (f, b, d) in enumerate(ops):
+            folded[r, :f.shape[0]], basis[r, :f.shape[0], :b.shape[1]], dp[r, :d.shape[0]] = f, b, d
+        out = deltafold.refold_batch(folded, basis, dp)
+        for r, (f, b, d) in enumerate(ops):
+            assert torch.equal(out[r, :f.shape[0]], deltafold.refold(f, b, d)), f"row {r}"
+        f, b, d = ops[0]
+        k = 17777  # not a multiple of the kernel's 128-event block
+        split = torch.cat([deltafold.refold(f[:k].contiguous(), b[:k].contiguous(), d),
+                           deltafold.refold(f[k:].contiguous(), b[k:].contiguous(), d)])
+        assert torch.equal(split, deltafold.refold(f, b, d))
+
+    def test_bad_operands_raise(self, cuda_device):
+        from crimp_tpu_torch.ops import deltafold
+
+        folded, basis, dp = _refold_operands(cuda_device, 4000, 0)
+        with pytest.raises(ValueError, match="contiguous"):
+            deltafold.refold(folded, basis.T.contiguous().T, dp)
+        with pytest.raises(ValueError, match="float64"):
+            deltafold.refold(folded.float(), basis, dp)
+        with pytest.raises(ValueError, match="device"):
+            deltafold.refold(folded, basis.cpu(), dp)
+
+    def test_engine_delta_mode_on_card(self, cuda_device):
+        from crimp_tpu_torch.ops import deltafold
+
+        pars = {"PEPOCH": 58359.55765869704, "F0": 0.14328254547263483, "F1": -9.746993965547238e-15}
+        rng = np.random.default_rng(4)
+        segs = [np.sort(58320.0 + 120.0 * i + rng.uniform(0.0, 100.0, 5000)) for i in range(4)]
+        deltafold.clear_cache()
+        anchored.fold_segments(pars, segs, device=cuda_device, delta_fold=1)
+        new = {**pars, "F0": pars["F0"] + 3e-10, "F1": pars["F1"] + 2e-17}
+        deltafold.reset_launches()
+        got, _ = anchored.fold_segments(new, segs, device=cuda_device, delta_fold=1)
+        assert deltafold.last_fold_info()["mode"] == "delta" and deltafold.LAUNCHES["refold"] == 1
+        exact, _ = anchored.fold_segments(new, segs, device=cuda_device)
+        d = np.abs(np.concatenate(got) - np.concatenate(exact))
+        assert np.max(np.minimum(d, 1.0 - d)) < 1e-8
+        deltafold.clear_cache()
