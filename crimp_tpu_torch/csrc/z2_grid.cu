@@ -119,6 +119,9 @@ __global__ void probe_kernel(const float* __restrict__ x, float* __restrict__ ou
   if (i == 0) *out = buf[0];
 }
 
+// Does nothing: its launch time is the floor under K1's (chip_smoke.py).
+__global__ void empty_kernel() {}
+
 // 2*pi rounded to f32, as (2*np.pi) * f32 is in the JAX kernels
 constexpr float TWO_PI_F = static_cast<float>(6.283185307179586);
 
@@ -267,6 +270,11 @@ void launch_tiles(bool ext, bool poly, dim3 grid, cudaStream_t stream, const dou
 extern "C" int z2_probe(const float* x, float* out, int n, void* stream) {
   if (n < 1 || n > PROBE_THREADS) return static_cast<int>(cudaErrorInvalidValue);
   probe_kernel<<<1, PROBE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int z2_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

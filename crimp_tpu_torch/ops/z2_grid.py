@@ -35,6 +35,7 @@ import hashlib
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -121,6 +122,32 @@ def build(force: bool = False) -> dict:
     return paths
 
 
+def ptxas_entries(text: str) -> list[dict]:
+    """Each kernel of an ``nvcc -Xptxas -v`` report: mangled ``name``,
+    ``registers``, ``stack`` (bytes of stack frame) and ``spill`` (bytes of
+    spill stores plus loads)."""
+    entries, current, props = [], None, {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = dict(name=m.group(1), registers=0, stack=0, spill=0)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = {"name": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None and props.get("name") == current["name"]:
+            current.update(stack=int(m.group(1)), spill=int(m.group(2)) + int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            entries.append(current)
+            current = None
+    return entries
+
+
 def _lib():
     global _LIB
     with _LIB_LOCK:
@@ -129,6 +156,8 @@ def _lib():
             vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
             lib.z2_probe.argtypes = [vp, vp, ci, vp]
             lib.z2_probe.restype = ci
+            lib.z2_empty.argtypes = [vp]
+            lib.z2_empty.restype = ci
             lib.z2_grid_sums.argtypes = [vp, ci, cd, cd, cd, vp, ci, vp, ci, vp, ci, ci, ci,
                                          ci, ci, vp, vp, vp]
             lib.z2_grid_sums.restype = ci
@@ -176,6 +205,13 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     check_launch(rc, "z2_probe")
     LAUNCHES["probe"] += 1
     return out
+
+
+def empty_launch(device: torch.device) -> None:
+    """Launch a kernel that does nothing, through the same ctypes path as
+    the probe: the floor under any launch's time. Not a port of anything,
+    so not counted in ``LAUNCHES``."""
+    check_launch(_lib().z2_empty(torch.cuda.current_stream(device).cuda_stream), "z2_empty")
 
 
 # ---------------------------------------------------------------------------

@@ -135,7 +135,7 @@ class TestSearchKernels:
         rng = np.random.RandomState(0)
         times = np.sort(rng.uniform(0, 500, 2000))
         freqs = np.linspace(0.05, 0.3, 37)
-        for nharm in (1, 2, 5, 25):
+        for nharm in (1, 2, 5, 25, 32):
             args = (torch.as_tensor(times, device=cuda_device), torch.as_tensor(freqs, device=cuda_device),
                     torch.zeros(1, dtype=torch.float64, device=cuda_device),
                     torch.zeros(1, dtype=torch.float64, device=cuda_device), nharm, trig, poly)
@@ -146,6 +146,60 @@ class TestSearchKernels:
             np.testing.assert_allclose(z, _z2(ref[:, 0, 0], times.size), rtol=rtol, atol=atol)
             if nharm <= 5:
                 np.testing.assert_allclose(z, naive_z2(times, freqs, nharm), rtol=rtol, atol=atol)
+
+    @staticmethod
+    def _k3_args(dev, n_events=5001, n_freq=300):
+        # 5001 events: four full 1024-event chunks and a ragged odd one (905); so
+        # few chunks that every call below is planned at one chunk per split,
+        # which makes the f64 sums of different calls comparable bit for bit
+        t = torch.as_tensor(_pulsed(n_events), device=dev)
+        f = torch.as_tensor(np.sort(np.random.RandomState(7).uniform(0.2495, 0.2505, n_freq)), device=dev)
+        return t, f, torch.zeros(1, dtype=torch.float64, device=dev)
+
+    @pytest.mark.parametrize("nharm", [21, 25, 32, 40])
+    def test_k3_high_nharm_matches_twin_and_lower_nharm_calls(self, cuda_device, nharm):
+        t, f, z = self._k3_args(cuda_device)
+        z2_general.reset_launches()
+        got = z2_general.general_sums(t, f, z, z, nharm, torch.float32, True)
+        # one general_kernel pass up to 32 harmonics, as launched
+        assert z2_general.LAUNCHES == {"general_sums": 1, "general_kernel": 1 if nharm <= 32 else 2}
+        assert torch.equal(got, z2_general.general_sums(t, f, z, z, nharm, torch.float32, True))
+        ref = z2_general.general_sums_reference(t, f, z, z, nharm, torch.float32, True)
+        np.testing.assert_allclose(_z2(got, t.shape[0]), _z2(ref, t.shape[0]), rtol=1e-4, atol=5e-3)
+        # harmonic k of this call is harmonic k of an nharm-k call (another R,
+        # one pass or two), bit for bit
+        for k in sorted({1, 2, 3, 8, 9, 20, 21, min(nharm, 32)}):
+            if k <= nharm:
+                low = z2_general.general_sums(t, f, z, z, k, torch.float32, True)
+                assert torch.equal(got[:, :, :, k - 1], low[:, :, :, k - 1]), f"harmonic {k}"
+
+    def test_k3_ragged_tile_and_trial_subsets_bitwise(self, cuda_device):
+        # 515 trials: tiles of 128 * R trials (R = 1, 2 or 4 by nharm and trig
+        # mode), the last ragged and not a multiple of R; every trial is
+        # independent of its neighbours
+        t, f, z = self._k3_args(cuda_device, n_freq=515)
+        for nharm, poly in ((2, True), (2, False), (5, True), (25, True)):
+            got = z2_general.general_sums(t, f, z, z, nharm, torch.float32, poly)
+            ref = z2_general.general_sums_reference(t, f, z, z, nharm, torch.float32, poly)
+            np.testing.assert_allclose(_z2(got, t.shape[0]), _z2(ref, t.shape[0]), rtol=1e-4, atol=5e-3)
+            for lo, hi in ((0, 3), (510, 515), (128, 131)):
+                part = z2_general.general_sums(t, f[lo:hi].contiguous(), z, z, nharm, torch.float32, poly)
+                assert torch.equal(got[..., lo:hi], part), (nharm, poly, lo)
+
+    @pytest.mark.parametrize("trig,poly", [(torch.float32, True), (torch.float32, False), (torch.float64, False)])
+    def test_k3_zero_derivative_row_is_bitwise_1d(self, cuda_device, trig, poly):
+        t, f, z = self._k3_args(cuda_device)
+        hf = torch.tensor([-1e-11, 0.0], dtype=torch.float64, device=cuda_device)
+        sf = torch.tensor([0.0, 1e-13], dtype=torch.float64, device=cuda_device) / 6.0
+        cube = z2_general.general_sums(t, f, hf, sf, 3, trig, poly)
+        assert torch.equal(cube[:, 0, 1], z2_general.general_sums(t, f, z, z, 3, trig, poly)[:, 0, 0])
+        ref = z2_general.general_sums_reference(t, f, hf, sf, 3, trig, poly)
+        tol = (1e-8, 1e-6) if trig == torch.float64 else (1e-4, 5e-3)
+        np.testing.assert_allclose(_z2(cube, t.shape[0]), _z2(ref, t.shape[0]), rtol=tol[0], atol=tol[1])
+
+    def test_k3_sincosf_restatement_is_bitwise_sincosf(self, cuda_device):
+        # every float frac in [-0.5, 0.5]: K3's argument range with f32 hardware trig
+        assert z2_general.sincosf_mismatches(cuda_device) == 0
 
     def test_k3_cube_rows_match_twin(self, cuda_device):
         t = _pulsed(6000)

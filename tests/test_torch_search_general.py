@@ -90,6 +90,22 @@ class TestZ2General:
         np.testing.assert_allclose(c.numpy(), c_ref, rtol=1e-8, atol=1e-7)
         np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-8, atol=1e-7)
 
+    @pytest.mark.parametrize("nharm", [21, 32])
+    def test_h_and_sums_at_one_pass_limits_match_jax(self, sim_events, nharm):
+        """nharm 21 (past K2's 20) and 32 (K3's one-pass limit)."""
+        sec = sim_events - sim_events.mean()
+        freqs = np.linspace(0.2497, 0.2503, 41)
+        for trig, jtrig, tol in ((torch.float64, jnp.float64, F64), (torch.float32, jnp.float32, F32)):
+            got = search.h_power(sec, freqs, nharm, trig_dtype=trig, device="cpu").numpy()
+            ref = np.asarray(jax_search.h_power(sec, freqs, nharm, trig_dtype=jtrig))
+            np.testing.assert_allclose(got, ref, rtol=tol[0], atol=tol[1])
+        c, s = search.harmonic_sums_1d(sec, freqs, nharm, trig_dtype=torch.float64, device="cpu")
+        c_ref, s_ref = (np.asarray(v) for v in jax_search.harmonic_sums_1d(sec, freqs, nharm,
+                                                                         trig_dtype=jnp.float64))
+        assert c.shape == (nharm, 41)
+        np.testing.assert_allclose(c.numpy(), c_ref, rtol=1e-8, atol=1e-7)
+        np.testing.assert_allclose(s.numpy(), s_ref, rtol=1e-8, atol=1e-7)
+
     def test_2d_and_3d_match_jax(self, sim_events):
         sec = sim_events - sim_events.mean()
         freqs = np.linspace(0.2496, 0.2504, 33)
@@ -126,7 +142,7 @@ class TestPeriodSearchFallThrough:
         ref_off = jax_search.PeriodSearch(sim_events, freqs, 3, use_grid_fastpath=False,
                                           poly_trig=False).ztest()
         np.testing.assert_allclose(off, ref_off, rtol=F32[0], atol=F32[1])
-        assert z2_general.LAUNCHES == {"general_sums": 0}  # CPU tensors take the twin
+        assert z2_general.LAUNCHES == {"general_sums": 0, "general_kernel": 0}  # CPU tensors take the twin
 
     def test_grid_fastpath_resolution(self):
         assert search.grid_fastpath_enabled(20) and not search.grid_fastpath_enabled(21)
@@ -151,6 +167,58 @@ class TestK3Contract:
         body = src[src.index("sincos_poly(float x"):src.index("fma_t(float a")]
         lits = [float(v) for v in re.findall(r"(-?\d+\.\d+e[+-]?\d+)f", body)]
         assert sorted(lits) == sorted(fasttrig._SIN_COEFFS + fasttrig._COS_COEFFS)
+
+    def test_source_constants_match_wrapper(self):
+        """The pass limit, block width and chunk of the CUDA source are the
+        wrapper's, and every pass width up to the limit has its kernel."""
+        src = (REPO / "crimp_tpu_torch" / "csrc" / "z2_general.cu").read_text()
+        consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+        assert int(consts["MAX_PASS"]) == z2_general.MAX_PASS == 32
+        assert int(consts["THREADS"]) == z2_general.THREADS
+        assert int(consts["EVENT_CHUNK"]) == z2_general.EVENT_CHUNK
+        cases = sorted(int(v) for v in re.findall(r"K3_CASE\((\d+)\)", src))
+        assert cases == list(range(1, z2_general.MAX_PASS + 1))
+
+    @pytest.mark.parametrize("n_blocks,n_chunks,slots,out_bytes,per", [
+        (196, 820, 528, 3_200_000, 103),  # 1e5 trials, nharm 2: 8 splits, 3 full waves
+        (79, 820, 528, 4_000_000, 41),  # the H-test shape: 20 splits, 3 waves
+        (1, 1, 528, 16, 1),  # one chunk
+        (100000, 820, 528, 1 << 28, 820),  # 190 waves: splitting gains < 2%
+        (4000, 820, 528, 64, 274),  # 7.6 waves: 3 splits fill the last one
+        (4000, 820, 528, 1 << 29, 820),  # ... capped at 2 by the partial buffer: no gain
+    ])
+    def test_plan_splits(self, n_blocks, n_chunks, slots, out_bytes, per):
+        got = z2_general.plan_splits(n_blocks, n_chunks, slots, out_bytes)
+        assert got == per
+        n_split = -(-n_chunks // got)
+        assert n_split * out_bytes <= max(out_bytes, z2_general.PARTIAL_BYTES)
+
+    def test_ptxas_report_and_sass_loop_counts(self):
+        from crimp_tpu_torch.ops import z2_grid
+        from crimp_tpu_torch.utils import k3_ab
+
+        log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114general_kernelIfLb1ELi2EEEvPKdi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114general_kernelIfLb1ELi2EEEvPKdi
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 90 registers, 448 bytes cmem[0]
+ptxas info    : Function properties for __internal_slowpath
+    40 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114general_kernelIdLb0ELi32EEEvPKdi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114general_kernelIdLb0ELi32EEEvPKdi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, 448 bytes cmem[0]"""
+        entries = z2_grid.ptxas_entries(log)
+        assert [(k3_ab.kernel_label(e["name"]), e["registers"], e["stack"], e["spill"]) for e in entries] == [
+            ("general_kernel<float,True,2>", 90, 8, 8), ("general_kernel<double,False,32>", 200, 0, 0)]
+        # an event loop of two pairs with a nested (idle) loop inside it
+        sass = [(0x00, "LDS.128", ""), (0x10, "DMUL", ""), (0x20, "FRND.F64.FLOOR", ""),
+                (0x30, "F2F.F32.F64", ""), (0x40, "FFMA", ""), (0x50, "IADD3", ""),
+                (0x60, "BRA", "0x50"), (0x70, "DMUL", ""), (0x80, "F2F.F32.F64", ""),
+                (0x90, "FADD", ""), (0xa0, "BRA", "0x0"), (0xb0, "EXIT", "")]
+        counts = k3_ab.loop_counts(sass)
+        assert counts["pairs_per_iteration"] == 2 and counts["instructions"] == 9
+        assert counts["per_pair"] == {"conversion": 1.0, "f32": 1.0, "f64": 1.0, "f64 round": 0.5,
+                                      "integer, branch, other": 0.5, "shared load": 0.5}
 
     def test_ops_per_pair(self):
         assert z2_general.ops_per_pair(2, torch.float32, poly=True) == (4, 34)
