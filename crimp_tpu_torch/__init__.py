@@ -10,7 +10,9 @@ first use and bound with ``ctypes`` (``ops/z2_grid.py``,
 
 Entry points take ``device=None``, which means ``cuda``; with no card they
 raise (``utils.device.resolve_device``). Pass ``device="cpu"`` to run the
-plain PyTorch twins on the host, as the tests do.
+plain PyTorch twins on the host, as the tests do. The environment is read
+only through ``knobs`` (prefix ``CRIMP_TORCH_``); ``resilience`` classifies
+failures and holds the degradation ladders, ``obs`` the run telemetry.
 """
 
-__all__ = ["io", "models", "ops", "pipelines", "utils"]
+__all__ = ["io", "knobs", "models", "obs", "ops", "parallel", "pipelines", "resilience", "utils"]

@@ -1,8 +1,9 @@
 """Carry parameters across from the JAX package's dataclasses.
 
-Both functions take a dict of numpy arrays keyed by the JAX dataclass
-fields (``crimp_tpu.models.timing.TimingParams`` and
-``crimp_tpu.models.profiles.ProfileParams``), so the same parameters can
+Each function takes a dict of numpy arrays keyed by the JAX dataclass
+fields (``crimp_tpu.models.timing.TimingParams``,
+``crimp_tpu.models.profiles.ProfileParams`` and
+``crimp_tpu.ops.multisource.StackedAnchoredModel``), so the same parameters can
 run through both packages. This module imports nothing of the JAX package:
 callers build the dict, e.g.
 ``{f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}``.
@@ -45,3 +46,13 @@ def profile_from_arrays(kind: str, d: dict, device="cpu") -> ProfileParams:
 def to_arrays(obj) -> dict:
     """Field dict of numpy arrays from a port dataclass (the inverse)."""
     return {f.name: getattr(obj, f.name).detach().cpu().numpy() for f in fields(obj)}
+
+
+def stacked_from_arrays(d: dict, device="cpu"):
+    """A port ``ops.multisource.StackedAnchoredModel`` (float64 tensors on
+    ``device``) from the field arrays of the JAX package's
+    ``StackedAnchoredModel``, so both packages can fold the same stacked
+    model."""
+    from crimp_tpu_torch.ops.multisource import StackedAnchoredModel
+
+    return _build(StackedAnchoredModel, d, device)

@@ -1,0 +1,34 @@
+"""crimp_tpu_torch.obs: host-side flight-recorder telemetry.
+
+Port of the core and heartbeat parts of ``crimp_tpu/obs``:
+
+- **Spans + metrics core** (:mod:`crimp_tpu_torch.obs.core`): hierarchical
+  spans (run -> pipeline stage -> kernel) plus typed counters and gauges,
+  :func:`run` (an append-only JSONL event stream and an atomic end-of-run
+  JSON manifest in the JAX package's schema) and :func:`mark_degraded`.
+- **Heartbeats** (:mod:`crimp_tpu_torch.obs.heartbeat`): :func:`beat`,
+  periodic progress/ETA events and an atomic sidecar.
+
+Disabled (``CRIMP_TORCH_OBS`` unset/off, the default) every hook is a
+strict no-op: :func:`span` returns a shared singleton and
+:func:`counter_add` returns after one global ``None`` check.
+"""
+
+from crimp_tpu_torch.obs.core import (  # noqa: F401
+    NULL_SPAN,
+    OBS_SCHEMA,
+    OBS_SCHEMA_VERSION,
+    active,
+    counter_add,
+    current_span_name,
+    enabled,
+    gauge_set,
+    last_manifest_path,
+    mark_degraded,
+    record_numeric_mode,
+    record_span,
+    run,
+    span,
+)
+from crimp_tpu_torch.obs import heartbeat  # noqa: F401
+from crimp_tpu_torch.obs.heartbeat import beat  # noqa: F401

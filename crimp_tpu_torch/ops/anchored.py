@@ -15,19 +15,24 @@ absolute phases in f64 leaves no margin. The split:
    folded = frac( const[a] + Horner_b(d) + G(d; a) + W(d; a) )
 
 ``fold_segments`` takes the delta-fold engine (``ops/deltafold.py``) with
-``delta_fold=1``; the default 0 is the JAX default, the exact branch.
+``delta_fold=1`` (None: CRIMP_TORCH_DELTA_FOLD, else 0, the JAX default, the
+exact branch). ``pad_anchored`` pads a model with inert rows, so models of
+ragged anchor, glitch and wave counts stack over a source axis
+(``ops/multisource.py``).
 ``fold_chunked`` folds an arbitrary MJD array through per-chunk anchors
 (the template pipeline, ``fold_phases``).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, fields
 from math import comb, factorial
 
 import numpy as np
 import torch
 
+from crimp_tpu_torch import obs
 from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
 from crimp_tpu_torch.utils.device import resolve_device
@@ -186,6 +191,44 @@ def prepare_anchors(timMod, t_ref_mjd) -> AnchoredModel:
     )
 
 
+def pad_anchored(am: AnchoredModel, n_anchor: int, n_glitch: int, n_wave: int) -> AnchoredModel:
+    """Pad an AnchoredModel to (A, G, W) = (n_anchor, n_glitch, n_wave)
+    with INERT rows, the conventions ``prepare_anchors`` already uses for
+    absent terms, so padded entries add exactly +0.0 on the device: extra
+    glitch columns get glep_off = -inf (never active) with gltd_sec = 1 (no
+    division by zero in the recovery term), extra wave harmonics zero
+    amplitudes, extra anchors zero const/taylor rows (gathered only by
+    padded events, whose results are discarded). Shrinking raises."""
+    A, G = am.glep_off.shape
+    W = am.wave_a.shape[0]
+    if n_anchor < A or n_glitch < G or n_wave < W:
+        raise ValueError(f"pad_anchored cannot shrink ({A},{G},{W}) -> ({n_anchor},{n_glitch},{n_wave})")
+
+    def pad1(x, n, fill=0.0):
+        return torch.cat([x, torch.full((n - x.shape[0],), fill, dtype=x.dtype, device=x.device)])
+
+    glep_off = torch.full((n_anchor, n_glitch), -math.inf, dtype=am.glep_off.dtype, device=am.glep_off.device)
+    glep_off[:A, :G] = am.glep_off
+    taylor = torch.zeros((n_anchor, am.taylor.shape[1]), dtype=am.taylor.dtype, device=am.taylor.device)
+    taylor[:A] = am.taylor
+    return AnchoredModel(
+        const=pad1(am.const, n_anchor),
+        taylor=taylor,
+        glep_off=glep_off,
+        glph=pad1(am.glph, n_glitch),
+        glf0=pad1(am.glf0, n_glitch),
+        glf1=pad1(am.glf1, n_glitch),
+        glf2=pad1(am.glf2, n_glitch),
+        glf0d=pad1(am.glf0d, n_glitch),
+        gltd_sec=pad1(am.gltd_sec, n_glitch, fill=1.0),
+        wep_off=pad1(am.wep_off, n_anchor),
+        wave_om_sec=am.wave_om_sec,
+        wave_a=pad1(am.wave_a, n_wave),
+        wave_b=pad1(am.wave_b, n_wave),
+        f0=am.f0,
+    )
+
+
 def anchor_deltas(times_mjd: np.ndarray, t_ref_mjd: np.ndarray, anchor_idx: np.ndarray) -> np.ndarray:
     """Event times as exact seconds relative to their anchor (host f64)."""
     return (
@@ -248,8 +291,8 @@ def anchored_fold(am: AnchoredModel, delta: torch.Tensor, anchor_idx: torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: int = 0,
-                  budget: float = 1e-9, fold_cache="mem", cache_tag: str | None = None):
+def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: int | None = None,
+                  budget: float | None = None, fold_cache=None, cache_tag: str | None = None):
     """Anchored fold of ragged per-segment event times in ONE device call.
 
     One anchor per segment (default: each segment's midpoint
@@ -260,7 +303,9 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: in
     ``delta_fold=1`` routes the fold through the delta-fold engine
     (``ops/deltafold.py``: the fold cache ``fold_cache``, namespaced by
     ``cache_tag``, and K4 refolds for linear updates within ``budget``
-    cycles); with the default 0 the engine is never consulted.
+    cycles); None reads CRIMP_TORCH_DELTA_FOLD and
+    CRIMP_TORCH_DELTA_FOLD_BUDGET (``deltafold.resolve_delta_fold``). Off,
+    the engine is never consulted.
     """
     seg_times = [np.atleast_1d(np.asarray(t, dtype=np.float64)) for t in seg_times]
     if t_ref_mjd is None:
@@ -276,6 +321,8 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: in
     sizes = [t.size for t in seg_times]
     anchor_idx = np.repeat(np.arange(len(seg_times)), sizes)
     times_cat = np.concatenate(seg_times)
+    obs.counter_add("events_folded", int(times_cat.size))
+    obs.counter_add("fold_segments", len(seg_times))
     delta = anchor_deltas(times_cat, t_ref, anchor_idx)
 
     def exact():
@@ -286,9 +333,10 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: in
             torch.as_tensor(anchor_idx, device=dev),
         ).cpu().numpy()
 
-    if delta_fold:
-        from crimp_tpu_torch.ops import deltafold
+    from crimp_tpu_torch.ops import deltafold
 
+    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget)
+    if delta_fold:
         folded, _ = deltafold.cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact,
                                           budget=budget, tag=cache_tag, fold_cache=fold_cache,
                                           device=dev)

@@ -24,12 +24,19 @@ package's figure, kept so the guard admits and trips where JAX's does) and
 folds exactly when the bound exceeds ``budget`` (default 1e-9 cycles).
 
 The fold cache keys products on (event-set sha, segment sizes, anchor sha,
-device fingerprint, model sha, tag). ``fold_cache`` selects the storage:
-``"off"``, ``"mem"`` (an in-process LRU of 64 products, the default) or a
-directory (the LRU plus npz files with a sha256 footer; a torn or corrupt
-file is renamed to ``*.corrupt`` and the fold runs exactly). The JAX
-package's env knobs, autotune resolution, obs counters and resilience
-ladder are not ported: a refold that fails raises.
+device fingerprint, model sha, tag). ``fold_cache`` selects the storage
+(the argument, else CRIMP_TORCH_FOLD_CACHE): ``"off"``, ``"mem"`` (an
+in-process LRU of 64 products, the default) or a directory (the LRU plus
+npz files with a sha256 footer; a torn or corrupt file is renamed to
+``*.corrupt`` and the fold runs exactly). ``resolve_delta_fold`` reads
+CRIMP_TORCH_DELTA_FOLD and CRIMP_TORCH_DELTA_FOLD_BUDGET under explicit
+arguments. The fold ladder keeps one rung of the JAX package's: a failure
+on the cache path drops to the exact fold (``degraded_fold_exact_refold``).
+A refold is not a rung: whether K4 takes an update is decided before it
+is launched (``refold_supported``; a shape it cannot take folds exactly as
+a normal mode, ``info["fallback"] == "unsupported"``), and any failure of
+the refold itself propagates, a device fault as ``KernelError``. The
+``delta_fold_*`` obs counters are the JAX package's.
 """
 
 from __future__ import annotations
@@ -46,8 +53,10 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from crimp_tpu_torch import knobs, obs, resilience
 from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
+from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils.device import resolve_device
 from crimp_tpu_torch.utils.logging import get_logger
 
@@ -67,6 +76,17 @@ LAUNCHES = {"refold": 0}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+
+
+def resolve_delta_fold(delta_fold=None, budget=None) -> tuple[int, float]:
+    """(delta_fold, budget): explicit arguments, else CRIMP_TORCH_DELTA_FOLD
+    (strict 0/1) and CRIMP_TORCH_DELTA_FOLD_BUDGET (> 0), else off and
+    1e-9 cycles, the JAX package's defaults."""
+    if delta_fold is None:
+        delta_fold = knobs.env_nonneg_int("CRIMP_TORCH_DELTA_FOLD", valid=(0, 1)) or 0
+    if budget is None:
+        budget = knobs.env_pos_float("CRIMP_TORCH_DELTA_FOLD_BUDGET") or DEFAULT_BUDGET
+    return int(bool(delta_fold)), float(budget)
 
 
 def reset_launches() -> None:
@@ -296,6 +316,16 @@ def _launch_refold(folded: torch.Tensor, basis: torch.Tensor, dp: torch.Tensor) 
     return out
 
 
+def refold_supported(n_events: int, n_params: int, device) -> bool:
+    """Whether :func:`refold` takes one client of ``n_events`` events and
+    ``n_params`` basis columns on ``device``: the twin takes any; K4 at
+    least one of each and at most ``deltafold_max_params()`` columns (the
+    basis rows of a block must fit its shared memory)."""
+    if torch.device(device).type != "cuda":
+        return True
+    return n_events >= 1 and 1 <= n_params <= _lib().deltafold_max_params()
+
+
 def refold(folded: torch.Tensor, basis: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
     """frac(folded + B @ dp) for (N,) phases, an (N, P) basis and a (P,)
     update, all contiguous f64 on one device: K4 on a CUDA tensor, the twin
@@ -349,14 +379,21 @@ def clear_cache() -> None:
     _MEM_CACHE.clear()
 
 
-def fold_cache_mode(fold_cache="mem") -> tuple[str, pathlib.Path | None]:
-    """``fold_cache`` -> ('off' | 'mem' | 'disk', directory or None): "off",
-    "mem" (in-process only) or a directory for the on-disk tier."""
-    if fold_cache is None or str(fold_cache) == "mem":
-        return "mem", None
-    if str(fold_cache) == "off":
+def fold_cache_mode(fold_cache=None) -> tuple[str, pathlib.Path | None]:
+    """``fold_cache`` (None: CRIMP_TORCH_FOLD_CACHE) -> ('off' | 'mem' |
+    'disk', directory or None): 0/off stores nothing; unset/auto/mem keeps
+    products in-process (the default); 1/disk/on uses
+    $XDG_CACHE_HOME/crimp_tpu_torch/foldcache; any other value is a
+    directory for the on-disk tier."""
+    env = knobs.raw("CRIMP_TORCH_FOLD_CACHE") if fold_cache is None else str(fold_cache).strip()
+    low = env.lower()
+    if low in knobs.OFF_WORDS:
         return "off", None
-    return "disk", pathlib.Path(fold_cache)
+    if low in ("", "auto", "mem", "memory"):
+        return "mem", None
+    if low in ("1", "disk", "on", "true"):
+        return "disk", pathlib.Path(knobs.cache_home()) / "crimp_tpu_torch" / "foldcache"
+    return "disk", pathlib.Path(env)
 
 
 def device_fingerprint(device) -> tuple[str, str]:
@@ -412,20 +449,12 @@ def _product_sha(prod: FoldProduct) -> str:
     return h.hexdigest()
 
 
-def _quarantine(path: pathlib.Path) -> None:
-    """Rename a corrupt product to ``*.corrupt`` (best effort)."""
-    try:
-        os.replace(path, str(path) + ".corrupt")
-        logger.warning("quarantined corrupt fold cache file %s -> %s.corrupt; folding exactly", path, path)
-    except OSError:
-        pass  # it vanished underneath us: nothing to quarantine
-
-
 def _disk_get(key: str, disk_dir: pathlib.Path) -> FoldProduct | None:
     path = disk_dir / f"{key}.npz"
     if not path.exists():
         return None
     try:
+        faultinject.fire("fold_cache")
         with np.load(path, allow_pickle=False) as doc:
             if int(doc["version"]) != CACHE_VERSION:
                 return None  # an older schema, not corruption
@@ -437,10 +466,11 @@ def _disk_get(key: str, disk_dir: pathlib.Path) -> FoldProduct | None:
                 nonlin=str(doc["nonlin"]),
             )
             if str(doc["sha"]) != _product_sha(prod):
-                raise ValueError(f"fold cache {path.name}: sha footer mismatch")
+                raise resilience.CacheCorruptError(f"fold cache {path.name}: sha footer mismatch")
             return prod
-    except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
-        _quarantine(path)
+    except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile, resilience.CacheCorruptError):
+        # torn write or bit rot: quarantine to *.corrupt and fold exactly
+        resilience.quarantine_file(path, label="fold_cache")
         return None
 
 
@@ -467,7 +497,7 @@ def _lookup(key: str, mode: str, disk_dir) -> FoldProduct | None:
     return prod
 
 
-def store_product(tm, times_cat, sizes, t_ref, phases, tag: str | None = None, fold_cache="mem",
+def store_product(tm, times_cat, sizes, t_ref, phases, tag: str | None = None, fold_cache=None,
                   device=None) -> str | None:
     """Seed the fold cache with an exact fold computed elsewhere (the
     serving engine's batched cold folds), so the next request of that tag
@@ -487,6 +517,7 @@ def store_product(tm, times_cat, sizes, t_ref, phases, tag: str | None = None, f
     _mem_put(key, prod)
     if mode == "disk":
         _disk_put(key, prod, disk_dir)
+    obs.counter_add("delta_fold_seeded")
     return key
 
 
@@ -497,15 +528,18 @@ def _ensure_basis(prod: FoldProduct, tm, delta, anchor_idx, device) -> FoldBasis
 
 
 def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget: float = DEFAULT_BUDGET,
-                tag: str | None = None, fold_cache="mem", device=None) -> tuple[np.ndarray, dict]:
+                tag: str | None = None, fold_cache=None, device=None) -> tuple[np.ndarray, dict]:
     """The engine's entry point (``anchored.fold_segments(delta_fold=1)``):
     returns (folded phases (N,), info).
 
     In order: a bitwise cache hit (same linear vector, same non-linear sha);
     the delta refold through K4 (a linear move within the budget, always
     against the stored exact product, so refolds never accumulate error);
-    the exact fold ``exact_fn()``, stored as the new product. A failing
-    refold raises.
+    the exact fold ``exact_fn()``, stored as the new product. The fold
+    ladder: a failing cache lookup drops to the exact fold (recorded,
+    ``info["fallback"]`` the failure's kind). A move K4 cannot take folds
+    exactly (``info["fallback"] == "unsupported"``, not a degradation); a
+    failing refold raises, a device fault as ``KernelError``.
     """
     global _last_info
     dev = resolve_device(device)
@@ -519,26 +553,45 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
     if mode != "off":
         key = fold_key(times_cat, sizes, t_ref, model_sha=nonlin, tag=tag, device=dev)
         info["key"] = key[:16]
-        prod = _lookup(key, mode, disk_dir)
+        try:
+            prod = _lookup(key, mode, disk_dir)
+        except resilience.KernelError:
+            raise
+        except Exception as exc:  # fold ladder: the cache path fell
+            kind = resilience.classify(exc)
+            resilience.record_degradation("fold", "exact_refold", kind)
+            info["fallback"] = kind.value
+            prod = None
     if prod is not None and prod.nonlin == nonlin and prod.pvec.shape == pvec.shape:
         dp = pvec - prod.pvec
         if not np.any(dp):
             info["mode"] = "cache"
+            obs.counter_add("delta_fold_cache_hits")
             _last_info = info
             return prod.phases.copy(), info
-        basis = _ensure_basis(prod, tm, delta, anchor_idx, dev)
-        bound = error_bound_cycles(basis.colmax, dp)
-        info["bound_cycles"] = bound
-        if bound <= budget:
-            if prod.phases_dev is None:
-                prod.phases_dev = torch.as_tensor(prod.phases, device=dev)
-            folded = refold(prod.phases_dev, basis.b, torch.as_tensor(dp, device=dev)).cpu().numpy()
-            info["mode"] = "delta"
-            _last_info = info
-            return folded, info
-        info["fallback"] = "budget"
+        if not refold_supported(int(np.size(times_cat)), int(dp.size), dev):
+            info["fallback"] = "unsupported"
+        else:
+            basis = _ensure_basis(prod, tm, delta, anchor_idx, dev)
+            bound = error_bound_cycles(basis.colmax, dp)
+            info["bound_cycles"] = bound
+            if bound <= budget:
+                from crimp_tpu_torch.ops import z2_grid
+
+                if prod.phases_dev is None:
+                    prod.phases_dev = torch.as_tensor(prod.phases, device=dev)
+                out = refold(prod.phases_dev, basis.b, torch.as_tensor(dp, device=dev))
+                folded = z2_grid.to_host(out, "deltafold_refold")
+                info["mode"] = "delta"
+                obs.counter_add("delta_fold_refolds")
+                _last_info = info
+                return folded, info
+            info["fallback"] = "budget"
+            obs.counter_add("delta_fold_guard_trips")
     elif prod is not None:
         info["fallback"] = "nonlinear"
+        obs.counter_add("delta_fold_nonlinear_fallbacks")
+    obs.counter_add("delta_fold_exact_folds")
     folded = np.asarray(exact_fn())
     if mode != "off":
         new = FoldProduct(phases=folded, t_ref=np.asarray(t_ref), sizes=tuple(int(s) for s in sizes),
@@ -566,7 +619,7 @@ def _warm_entry(tm, seg_times):
     return tm, t_ref, sizes, times_cat
 
 
-def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_BUDGET, fold_cache="mem",
+def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_BUDGET, fold_cache=None,
                        device=None):
     """Refold every admitted warm client in ONE K4 launch.
 
@@ -601,7 +654,14 @@ def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_
         nonlin = nonlinear_sha(tm)
         key = fold_key(times_cat, sizes, t_ref, model_sha=nonlin, tag=tags[i], device=dev)
         info["key"] = key[:16]
-        prod = _lookup(key, mode, disk_dir)
+        try:
+            prod = _lookup(key, mode, disk_dir)
+        except resilience.KernelError:
+            raise
+        except Exception as exc:  # a cache-path failure demotes this client to the
+            # solo path, where cached_fold's own fold ladder records it
+            info["fallback"] = resilience.classify(exc).value
+            continue
         if prod is None:
             info["fallback"] = "miss"
             continue
@@ -611,7 +671,11 @@ def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_
         dp = pvec - prod.pvec
         if not np.any(dp):
             info["mode"] = "cache"
+            obs.counter_add("delta_fold_cache_hits")
             phase_lists[i] = np.split(prod.phases.copy(), np.cumsum(sizes)[:-1])
+            continue
+        if not refold_supported(int(times_cat.size), int(dp.size), dev):
+            info["fallback"] = "unsupported"
             continue
         anchor_idx = np.repeat(np.arange(len(sizes)), sizes)
         delta = anchored.anchor_deltas(times_cat, t_ref, anchor_idx)
@@ -620,6 +684,7 @@ def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_
         info["bound_cycles"] = bound
         if bound > budget:
             info["fallback"] = "budget"
+            obs.counter_add("delta_fold_guard_trips")
             continue
         admitted.append((i, prod, basis, dp, sizes, times_cat.size))
     if not admitted:
@@ -633,7 +698,10 @@ def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_
         folded_pad[r, :n_i] = torch.as_tensor(prod.phases, device=dev)
         basis_pad[r, :n_i, :basis.b.shape[1]] = basis.b
         dp_pad[r, :dp.size] = torch.as_tensor(dp, device=dev)
-    out = refold_batch(folded_pad, basis_pad, dp_pad).cpu().numpy()
+    from crimp_tpu_torch.ops import z2_grid
+
+    out = z2_grid.to_host(refold_batch(folded_pad, basis_pad, dp_pad), "deltafold_refold")
+    obs.counter_add("delta_fold_refolds", len(admitted))
     for r, (i, _, _, _, sizes, n_i) in enumerate(admitted):
         infos[i]["mode"] = "delta"
         infos[i]["batched"] = True

@@ -45,38 +45,49 @@ import math
 import numpy as np
 import torch
 
-from crimp_tpu_torch.ops import fasttrig, z2_general, z2_grid
+from crimp_tpu_torch import knobs, obs, resilience
+from crimp_tpu_torch.ops import fasttrig, reduce, z2_general, z2_grid
+from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils.device import resolve_device
 
 # The f32 inner sweep's error grows ~linearly in harmonic number; 20 is
 # the conventional H-test maximum and the JAX fast-path limit.
 GRID_FASTPATH_MAX_NHARM = 20
-# Factorized sweep: exact sin/cos reseed every 16 trials (JAX: 64). With the
-# polynomial pair the rotation multiplier's |cos^2+sin^2| error is a smooth
-# function of b, so the sweep's amplitude drifts coherently with the stride;
-# at high signal-to-noise a stride of 64 moves the statistic several times
-# the exact grid's own f32 error, while 16 reaches the floor that shorter
-# strides and hardware trig share (tests/test_torch_mxu.py pins both).
-GRID_MXU_RESEED = 16
+# Factorized sweep: exact sin/cos reseed every 64 trials, the JAX default
+# (crimp_tpu/ops/autotune.py GRID_MXU_RESEED_DEFAULT). With the polynomial
+# pair the rotation multiplier's |cos^2+sin^2| error is a smooth function of
+# b, so the sweep's amplitude drifts coherently with the stride: at high
+# signal-to-noise a stride of 64 moves the statistic several times the exact
+# grid's own f32 error, while 16 reaches the floor that shorter strides and
+# hardware trig share (tests/test_torch_mxu.py pins both). 16 is an option,
+# through ``reseed=``, never the default.
+GRID_MXU_RESEED = 64
 MXU_EVENT_BLOCK = 1 << 15  # factorized path: events per f32 matmul block
 MXU_TRIAL_BLOCK = 256  # factorized path: trials per sweep matrix
 STREAM_EVENT_CHUNK = 1 << 21  # events per streamed host->device chunk
+STREAM_MIN_EVENTS_DEFAULT = 1 << 22
+_FROM_ENV = object()
 
 
 def grid_fastpath_enabled(nharm: int, override: bool | None = None) -> bool:
     """Whether the uniform-grid f32 fast path is used: the explicit
-    ``override``, else nharm <= 20 (the port reads no environment)."""
+    ``override``, else CRIMP_TORCH_GRID_FASTPATH ("0"/"off" disables,
+    "1"/"on" forces), else nharm <= 20."""
     if override is not None:
         return bool(override)
+    state = knobs.parse_onoff(knobs.raw("CRIMP_TORCH_GRID_FASTPATH"))
+    if state is not None:
+        return state
     return nharm <= GRID_FASTPATH_MAX_NHARM
 
 
-def stream_min_events(threshold: int | str | None = 1 << 22) -> int | None:
-    """Event count above which a caller should stream: ``threshold`` as an
-    int, None for 0/"0"/"off"/None (streaming disabled); default 2^22, as
-    in the JAX package, but given as an argument rather than read from the
-    environment."""
-    if threshold is None or str(threshold).strip().lower() in ("0", "off", "false", "no"):
+def stream_min_events(threshold=_FROM_ENV) -> int | None:
+    """Event count above which a caller should stream: ``threshold`` when
+    given (an int; None, 0 or "off" disable streaming), else
+    CRIMP_TORCH_STREAM_MIN_EVENTS, else 2^22 as in the JAX package."""
+    if threshold is _FROM_ENV:
+        threshold = knobs.raw("CRIMP_TORCH_STREAM_MIN_EVENTS") or STREAM_MIN_EVENTS_DEFAULT
+    if threshold is None or str(threshold).strip().lower() in knobs.OFF_WORDS | {"no"}:
         return None
     try:
         value = int(threshold)
@@ -88,23 +99,35 @@ def stream_min_events(threshold: int | str | None = 1 << 22) -> int | None:
     return value
 
 
+def resolve_grid_mxu(mxu: bool | None = None, reseed: int | None = None,
+                     mxu_bf16: bool | None = None) -> tuple[bool, int, bool]:
+    """(use_mxu, reseed, mxu_bf16) for the grid wrappers: explicit arguments
+    win; ``mxu`` None reads CRIMP_TORCH_GRID_MXU (strict 0/1; unset = off),
+    ``reseed`` None is GRID_MXU_RESEED, ``mxu_bf16`` None is off."""
+    if mxu is None:
+        mxu = bool(knobs.env_nonneg_int("CRIMP_TORCH_GRID_MXU", valid=(0, 1)) or 0)
+    return bool(mxu), GRID_MXU_RESEED if reseed is None else int(reseed), bool(mxu_bf16)
+
+
 def chebyshev_weighted_sums(cos1, sin1, weights, nharm: int):
     """Weighted per-harmonic trig sums (nharm, ...) in the input dtype.
 
     Harmonic k comes from the Chebyshev recurrence cos(k t) = 2 cos t
     cos((k-1) t) - cos((k-2) t) (and its sine twin), so only the k=1
-    sin/cos pair is ever evaluated; summation is over the trailing axis.
+    sin/cos pair is ever evaluated; summation is over the trailing axis
+    (``reduce.event_sum``).
     """
+    rsum = reduce.event_sum
     cos_km1, sin_km1 = cos1, sin1
     cos_km2 = torch.ones_like(cos1)
     sin_km2 = torch.zeros_like(sin1)
-    c_list = [torch.sum(weights * cos1, dim=-1)]
-    s_list = [torch.sum(weights * sin1, dim=-1)]
+    c_list = [rsum(weights * cos1)]
+    s_list = [rsum(weights * sin1)]
     for _ in range(1, nharm):
         cos_k = 2 * cos1 * cos_km1 - cos_km2
         sin_k = 2 * cos1 * sin_km1 - sin_km2
-        c_list.append(torch.sum(weights * cos_k, dim=-1))
-        s_list.append(torch.sum(weights * sin_k, dim=-1))
+        c_list.append(rsum(weights * cos_k))
+        s_list.append(rsum(weights * sin_k))
         cos_km2, sin_km2 = cos_km1, sin_km1
         cos_km1, sin_km1 = cos_k, sin_k
     return torch.stack(c_list), torch.stack(s_list)
@@ -212,20 +235,54 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
 
 
 def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
-                          poly: bool = True, mxu: bool = False, reseed: int = GRID_MXU_RESEED,
-                          mxu_bf16: bool = False, weights=None, per_split: int | None = None,
-                          device=None):
+                          poly: bool = True, mxu: bool | None = None, reseed: int | None = None,
+                          mxu_bf16: bool | None = None, weights=None,
+                          per_split: int | None = None, device=None, ladder: bool = True):
     """(c, s, n_events) for the uniform-grid wrappers, c and s of shape
     (n_fddot, n_fdot, nharm, n_freq) f64 (n_fddot = 1 when ``fddots`` is
     None: the 2-D K2 instantiation). ``mxu`` picks the factorized matmul
-    path. There is no fallback ladder: a failing kernel raises."""
+    path (explicit > CRIMP_TORCH_GRID_MXU > off; ``resolve_grid_mxu``).
+
+    With ``ladder`` (the 1-D and cube wrappers, as in the JAX package; its
+    2-D wrappers have none) this is the grid resilience ladder: a failed
+    factorized rung drops to the streamed K2 grid, then to the in-core K2
+    grid, each step recorded (``degraded_grid_*``). ``weights`` skip the
+    streamed rung, which carries no weights. A ``KernelError`` is never
+    taken down the ladder: it propagates."""
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
     t = _f64(times, resolve_device(device))
-    if mxu:
-        c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed,
-                              mxu_bf16)
-        return c, s, t.shape[0]
+    use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16)
+    n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
+    obs.counter_add("grid_trials", int(n_freq) * n_rows)
+    if use_mxu:
+        try:
+            if ladder:
+                faultinject.fire("harmonic_sums")
+            # one exact-sincos reseed row per `rs` trials per grid row
+            obs.counter_add("grid_mxu_reseeds", -(-int(n_freq) // max(1, rs)) * n_rows)
+            c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, rs, b16)
+            return c, s, t.shape[0]
+        except resilience.KernelError:
+            raise
+        except Exception as exc:  # grid ladder: the factorized rung fell
+            if not ladder:
+                raise
+            kind = resilience.classify(exc)
+            if weights is None:
+                try:
+                    resilience.record_degradation("grid", "streamed", kind)
+                    c, s = _streamed_uniform_sums(t, f0, df, n_freq, nharm, poly=poly,
+                                                  fdots=fdots, fddots=fddots, device=t.device)
+                    return c, s, t.shape[0]
+                except resilience.KernelError:
+                    raise
+                except Exception as exc2:  # last rung: the in-core exact grid
+                    resilience.record_degradation("grid", "exact", resilience.classify(exc2))
+            else:
+                resilience.record_degradation("grid", "exact", kind)
+    elif ladder:
+        faultinject.fire("harmonic_sums")
     if nharm > z2_grid.MAX_NHARM:
         raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}; "
                          "use the general kernels (z2_power, h_power, ...) beyond that")
@@ -240,7 +297,8 @@ def harmonic_sums_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm
     are f64 seconds, pre-centered by the caller. Keywords as
     ``_grid3d_sums_dispatch`` (poly, mxu, reseed, mxu_bf16, weights,
     per_split)."""
-    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device, **kw)
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device,
+                                    ladder=False, **kw)
     return c[0], s[0], n
 
 
@@ -270,7 +328,8 @@ def h_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 20, devi
 def z2_power_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
                      device=None, **kw) -> torch.Tensor:
     """Z^2_n over the (fdot x uniform-frequency) grid -> (n_fdot, n_freq) f64."""
-    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device, **kw)
+    c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, None, nharm, device=device,
+                                    ladder=False, **kw)
     return torch.sum(z2_from_sums(c[0], s[0], n), dim=1)
 
 
@@ -666,8 +725,8 @@ def h_power_segments_chunked(times, masks, freqs, nharm: int = 5, row_block: int
                              device=None) -> np.ndarray:
     """``h_power_segments`` in row chunks of ``row_block`` (None/<=0 or >=
     the row count: one call), bounding the (rows, events, harmonics)
-    temporaries. Rows are independent, so each row's bits are those of the
-    single call. Returns (S,) numpy."""
+    temporaries. Returns (S,) numpy."""
+    faultinject.fire("harmonic_sums")
     times = np.asarray(times)
     n_rows = times.shape[0]
     if row_block is None or row_block <= 0 or row_block >= n_rows:

@@ -31,14 +31,17 @@ batched over (segment, phase). Not ported in this slice: bf16 sweeps
 from __future__ import annotations
 
 import math
+from dataclasses import fields
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from crimp_tpu_torch import knobs, obs
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES, ProfileParams
 from crimp_tpu_torch.models.profiles import extended_loglik
 from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
+from crimp_tpu_torch.ops import reduce
 from crimp_tpu_torch.utils.device import resolve_device
 
 # 0.5 * chi2.ppf(0.6827, df=1): the 1-sigma likelihood-profile drop.
@@ -153,19 +156,29 @@ def _optimal_norm(s, mask, exposure, n_events, lo, hi, iters: int):
     m = mask[:, None, :]
     for _ in range(iters):
         inv = torch.where(m, 1.0 / (a[..., None] + s), 0.0)
-        g = torch.sum(inv, dim=-1) - exposure[:, None]
-        gp = -torch.sum(inv**2, dim=-1)
+        g = reduce.event_sum(inv) - exposure[:, None]
+        gp = -reduce.event_sum(inv**2)
         a = _clip(a - g / gp, feasible_lo, hi)
     return a
+
+
+def _amp_total(tpl: ProfileParams) -> torch.Tensor:
+    """sum_j amp_j * ampShift per template: 0-d, or (S,) for per-row templates."""
+    return torch.sum(tpl.amp * tpl.amp_shift[..., None], dim=-1)
+
+
+def _per_row(x: torch.Tensor) -> torch.Tensor:
+    """A template scalar against (S, P) grids: (1,) or, per row, (S, 1)."""
+    return x[..., None]
 
 
 def _optimal_norm_amp(kind, tpl, s, mask, exposure, n_events, cfg: ToAFitConfig):
     """Joint concave inner solve for (A, b) = (norm, ampShift), per grid point:
     a projected 2x2 Newton ascent on LL(A, b). s: (S, P, N) -> (A, b) (S, P)."""
-    q0 = torch.sum(tpl.amp * tpl.amp_shift)
+    q0 = _per_row(_amp_total(tpl))
     c_b = 0.0 if kind == FOURIER else q0 / (2 * math.pi)
 
-    a_lo = cfg.norm_lo_frac * tpl.norm
+    a_lo = _per_row(cfg.norm_lo_frac * tpl.norm)
     a_hi = cfg.norm_hi
     b_lo, b_hi = cfg.amp_lo, cfg.amp_hi
     min_s = _masked_min(s, mask)
@@ -182,11 +195,11 @@ def _optimal_norm_amp(kind, tpl, s, mask, exposure, n_events, cfg: ToAFitConfig)
     for _ in range(2 * cfg.newton_iters):
         inv = torch.where(m, 1.0 / (a[..., None] + b[..., None] * s), 0.0)
         inv_s = inv * s
-        g_a = torch.sum(inv, dim=-1) - T
-        g_b = torch.sum(inv_s, dim=-1) - c_b * T
-        h_aa = -torch.sum(inv**2, dim=-1)
-        h_ab = -torch.sum(inv * inv_s, dim=-1)
-        h_bb = -torch.sum(inv_s**2, dim=-1)
+        g_a = reduce.event_sum(inv) - T
+        g_b = reduce.event_sum(inv_s) - c_b * T
+        h_aa = -reduce.event_sum(inv**2)
+        h_ab = -reduce.event_sum(inv * inv_s)
+        h_bb = -reduce.event_sum(inv_s**2)
         det = h_aa * h_bb - h_ab**2
         # Damped fallback when the Hessian is near-singular (flat shape):
         # a 1-D Newton step on A alone, regularizer ADDED to -h_aa >= 0.
@@ -204,13 +217,13 @@ def _loglik_at(kind, tpl, s, a, b, mask, exposure, n_events):
     vals = a[..., None] + b[..., None] * s
     m = mask[:, None, :]
     positive = torch.amin(torch.where(m, vals, math.inf), dim=-1) > 0
-    log_sum = torch.sum(torch.where(m, torch.log(torch.clamp(vals, min=1e-300)), 0.0), dim=-1)
+    log_sum = reduce.event_sum(torch.where(m, torch.log(torch.clamp(vals, min=1e-300)), 0.0))
     T = exposure[:, None]
     if kind == FOURIER:
         const = (n_events * torch.log(exposure))[:, None]
         ll = -a * T + const + log_sum
     else:
-        q = torch.sum(tpl.amp * tpl.amp_shift) * b
+        q = _per_row(_amp_total(tpl)) * b
         const = (n_events * torch.log(exposure / (2 * math.pi)))[:, None] - q * T / (2 * math.pi)
         ll = -a * T + const + log_sum
     return torch.where(positive, ll, -math.inf)
@@ -229,10 +242,10 @@ def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, w
     if cfg.vary_amps:
         a, b = _optimal_norm_amp(kind, tpl, s, mask, exposure, n_events, cfg)
     elif cfg.fix_norm:
-        a = tpl.norm * torch.ones(s.shape[:-1], dtype=x.dtype, device=x.device)
+        a = _per_row(tpl.norm) * torch.ones(s.shape[:-1], dtype=x.dtype, device=x.device)
         b = torch.ones_like(a)
     else:
-        lo = cfg.norm_lo_frac * tpl.norm
+        lo = _per_row(cfg.norm_lo_frac * tpl.norm)
         a = _optimal_norm(s, mask, exposure, n_events, lo, cfg.norm_hi, cfg.newton_iters)
         b = torch.ones_like(a)
     return _loglik_at(kind, tpl, s, a, b, mask, exposure, n_events), a, b
@@ -299,8 +312,17 @@ def _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig,
 
 
 def _flatten_tpl(tpl: ProfileParams) -> torch.Tensor:
-    """[norm, amp_1..K, loc_1..K, wid_1..K, ampShift] flattened vector."""
-    return torch.cat([tpl.norm[None], tpl.amp, tpl.loc, tpl.wid, tpl.amp_shift[None]])
+    """[norm, amp_1..K, loc_1..K, wid_1..K, ampShift] flattened vector (D,),
+    or (S, D) for per-row templates."""
+    return torch.cat([tpl.norm[..., None], tpl.amp, tpl.loc, tpl.wid, tpl.amp_shift[..., None]], dim=-1)
+
+
+def template_rows(tpl: ProfileParams, rows) -> ProfileParams:
+    """The templates of ``rows`` when ``tpl`` carries one per segment row
+    (leaves with a leading row axis); a shared template as it is."""
+    if tpl.norm.dim() == 0:
+        return tpl
+    return ProfileParams(**{f.name: getattr(tpl, f.name)[rows] for f in fields(tpl)})
 
 
 def free_param_spec(kind: str, template: dict, vary_amps: bool = False):
@@ -431,7 +453,8 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
 
     def scan_profile(rows, phis):
         warm = None if warm_vec is None else warm_vec[rows]
-        ll, _ = profile_loglik(kind, tpl, x[rows], mask[rows], exposure[rows], phis, cfg, warm)
+        ll, _ = profile_loglik(kind, template_rows(tpl, rows), x[rows], mask[rows], exposure[rows], phis,
+                               cfg, warm)
         return ll
 
     all_rows = torch.arange(S, device=dev)
@@ -485,7 +508,11 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
 
 def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitConfig) -> dict:
     """Full ToA fit of S padded segments at once: x, mask (S, N), exposure
-    (S,), tensors on one device (the JAX package's vmapped ``fit_segment``)."""
+    (S,), tensors on one device (the JAX package's vmapped ``fit_segment``).
+    ``tpl`` is one shared template, or one per row: leaves with a leading
+    (S,) axis (``fit_toas_batch_multi``; not with ``cfg.free_idx``)."""
+    if cfg.free_idx and tpl.norm.dim() > 0:
+        raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
     S = x.shape[0]
     dev = x.device
@@ -590,10 +617,12 @@ def fit_toas_batch(kind: str, tpl: ProfileParams, phases, masks, exposures,
 
 
 def resolve_runtime_cfg(cfg: ToAFitConfig) -> ToAFitConfig:
-    """Fill the auto (-1) dense window with its static default (the port has
-    no autotune cache yet)."""
+    """Fill the auto (-1) dense window: CRIMP_TORCH_TOA_DENSE_WINDOW, else
+    its static default (the port has no autotune cache yet). Any window
+    gives the same bits."""
     if cfg.err_dense_window < 0:
-        return cfg._replace(err_dense_window=DENSE_WINDOW_DEFAULT)
+        env = knobs.env_nonneg_int("CRIMP_TORCH_TOA_DENSE_WINDOW")
+        return cfg._replace(err_dense_window=DENSE_WINDOW_DEFAULT if env is None else env)
     return cfg
 
 
@@ -603,6 +632,7 @@ def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
     phases = np.asarray(phases, dtype=float)
     if phases.shape[0] == 0:
         return {}
+    obs.counter_add("toas_fit", phases.shape[0])
     out = fit_toas_batch(kind, tpl, phases, np.asarray(masks, dtype=bool),
                          np.asarray(exposures, dtype=float), resolve_runtime_cfg(cfg),
                          device=device)

@@ -21,7 +21,9 @@ started together.
 
 Each wrapper takes a CPU tensor to its plain twin (``probe_reference``,
 ``z2_tile_sums_reference``: the same math in torch ops). A CUDA tensor
-launches the kernel or raises; nothing falls back. ``LAUNCHES`` counts,
+launches the kernel or raises; nothing falls back. A missing ``nvcc``, a
+failed build and a launch that returns a CUDA error raise ``KernelError``
+(``resilience.taxonomy``), which no degradation ladder catches. ``LAUNCHES`` counts,
 per wrapper, the calls that launched its kernel (one ``z2_tile_sums`` call
 launches ``z2_tile_kernel``, plus ``z2_reduce_splits`` when the events are
 split across blocks), so a run can show that its main path went through
@@ -44,6 +46,7 @@ import time
 import torch
 
 from crimp_tpu_torch.ops import fasttrig, search
+from crimp_tpu_torch.resilience.taxonomy import KernelError
 
 TRIAL_TILE = 256  # trials per tile = threads per block of K2
 EVENT_CHUNK = 1024  # events staged per shared-memory chunk (and twin chunk)
@@ -84,7 +87,7 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the Z^2 kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the Z^2 kernels need the CUDA toolkit")
 
 
 def build(force: bool = False) -> dict:
@@ -118,7 +121,7 @@ def build(force: bool = False) -> dict:
         BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, log=log.strip())
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
     return paths
 
 
@@ -167,7 +170,19 @@ def _lib():
 
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+        raise KernelError(f"{name}: CUDA error {rc} at launch")
+
+
+def to_host(t: torch.Tensor, name: str):
+    """``t.cpu().numpy()`` for a hand kernel's output. The launch is
+    asynchronous, so a fault of the kernel on the card shows at this copy:
+    it raises ``KernelError``, which no ladder takes for a rung."""
+    try:
+        return t.cpu().numpy()
+    except RuntimeError as exc:
+        if t.device.type != "cuda":
+            raise
+        raise KernelError(f"{name}: device fault seen at the copy to the host: {exc}") from exc
 
 
 def stream_of(t: torch.Tensor) -> int:

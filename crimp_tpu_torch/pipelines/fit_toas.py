@@ -14,6 +14,11 @@ of the timing fields (``ops.fold``). With ``mcmc_delta=1`` a linear free
 set scores through the delta-basis likelihood (``make_logprob_delta``,
 ``ops.mcmc.delta_logprob``), and ``delta_fold=1`` takes the post-fit
 residuals through one basis product (``fit_utils.model_phase_residuals_delta``).
+Left None, both read their knobs (CRIMP_TORCH_MCMC_DELTA,
+CRIMP_TORCH_DELTA_FOLD, CRIMP_TORCH_DELTA_FOLD_BUDGET); the JAX package's
+defaults are off. The MCMC ladder is the JAX package's: a failure of the
+delta-basis run drops to the exact likelihood (``degraded_mcmc_exact_likelihood``),
+except a ``KernelError``, which propagates.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from crimp_tpu_torch import knobs, obs, resilience
 from crimp_tpu_torch.io import parfile as parfile_io
 from crimp_tpu_torch.io import tim as tim_io
 from crimp_tpu_torch.io.parfile import get_parameter_value
@@ -35,6 +41,7 @@ from crimp_tpu_torch.ops import deltafold
 from crimp_tpu_torch.ops import fold as fold_ops
 from crimp_tpu_torch.ops import mcmc as mcmc_ops
 from crimp_tpu_torch.pipelines import fit_utils
+from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils.device import resolve_device
 from crimp_tpu_torch.utils.logging import get_logger
 
@@ -303,9 +310,9 @@ def run_mcmc(
     flat_npy: str | None = None,
     progress: bool = True,
     seed: int = 0,
-    mcmc_delta: int = 0,
+    mcmc_delta: int | None = None,
     device=None,
-    budget: float = deltafold.DEFAULT_BUDGET,
+    budget: float | None = None,
     draws: mcmc_ops.Draws | None = None,
 ):
     """Ensemble-MCMC posterior sampling on ``device`` (default cuda)
@@ -315,13 +322,19 @@ def run_mcmc(
     ``default_rng(seed)``, uniform in the prior box); the sampler's draws
     come from a ``torch.Generator`` seeded from ``seed``, or are ``draws``
     when given (fed random numbers, e.g. the JAX package's). With
-    ``mcmc_delta=1`` proposals score through the delta-basis likelihood when
-    ``make_logprob_delta`` admits the free set within ``budget``; a refused
-    set takes the exact likelihood, as in the JAX package. A failure on the
-    delta path raises.
+    ``mcmc_delta=1`` (None: CRIMP_TORCH_MCMC_DELTA, else off) proposals score
+    through the delta-basis likelihood when ``make_logprob_delta`` admits
+    the free set within ``budget`` (None: CRIMP_TORCH_DELTA_FOLD_BUDGET, else
+    1e-9 cycles); a refused set takes the exact likelihood, as in the JAX
+    package (``mcmc_guard_fallbacks``). A failure of the delta-basis run, or
+    a NaN in its log-probabilities, steps the ladder to the exact likelihood
+    from the same draws; a ``KernelError`` propagates.
 
     Returns (chain, flat, summaries) as numpy."""
     dev = resolve_device(device)
+    if mcmc_delta is None:
+        mcmc_delta = knobs.env_nonneg_int("CRIMP_TORCH_MCMC_DELTA", valid=(0, 1)) or 0
+    _, budget = deltafold.resolve_delta_fold(0, budget)
     rng = np.random.default_rng(seed)
     ndim = len(keys)
     p0 = np.empty((walkers, ndim))
@@ -329,25 +342,42 @@ def run_mcmc(
         lo, hi = prior.bounds[name]
         p0[:, i] = rng.uniform(lo, hi, size=walkers)
 
-    log_prob_fn, lp_data = None, None
+    def sample(log_prob_fn, lp_data):
+        if draws is None:
+            chain_t, lps_t = mcmc_ops.ensemble_sample(log_prob_fn, p0, steps, seed, data=lp_data,
+                                                      device=dev)
+        else:
+            fed = mcmc_ops.Draws(*(d.to(dev) for d in draws))
+            chain_t, lps_t = mcmc_ops.ensemble_sample_draws(
+                log_prob_fn, torch.as_tensor(p0, device=dev), fed, data=lp_data,
+                graph_steps=mcmc_ops.GRAPH_STEPS if dev.type == "cuda" else 0)
+        return chain_t.cpu().numpy(), lps_t.cpu().numpy()
+
+    obs.counter_add("mcmc_proposals_evaluated", steps * walkers)
+    chain = None
     if mcmc_delta:
         lp_data, delta_info = make_logprob_delta(init_parfile, keys, prior, x, y, yerr, budget=budget,
                                                  device=dev)
         if lp_data is None:
+            obs.counter_add("mcmc_guard_fallbacks", 1)
             logger.info("delta-basis MCMC refused (%s); using the exact likelihood", delta_info["reason"])
         else:
-            log_prob_fn = mcmc_ops.delta_logprob
-    if log_prob_fn is None:
-        log_prob_fn, lp_data = make_logprob_parts(init_parfile, keys, prior, x, y, yerr, device=dev)
-    if draws is None:
-        chain_t, lps_t = mcmc_ops.ensemble_sample(log_prob_fn, p0, steps, seed, data=lp_data, device=dev)
-    else:
-        fed = mcmc_ops.Draws(*(d.to(dev) for d in draws))
-        chain_t, lps_t = mcmc_ops.ensemble_sample_draws(
-            log_prob_fn, torch.as_tensor(p0, device=dev), fed, data=lp_data,
-            graph_steps=mcmc_ops.GRAPH_STEPS if dev.type == "cuda" else 0)
-    chain = chain_t.cpu().numpy()
-    lps = lps_t.cpu().numpy()
+            try:
+                faultinject.fire("mcmc_step")
+                chain, lps = sample(mcmc_ops.delta_logprob, lp_data)
+                if np.isnan(lps).any():
+                    raise resilience.NonfiniteResultError("delta-basis MCMC produced NaN log-probabilities")
+                obs.counter_add("mcmc_delta_path_steps", steps)
+            except resilience.KernelError:
+                raise
+            except Exception as exc:  # MCMC ladder: the delta-basis rung fell
+                kind = resilience.classify(exc)
+                resilience.record_degradation("mcmc", "exact_likelihood", kind)
+                logger.warning("delta-basis MCMC failed (%s); falling back to the exact likelihood",
+                               kind.value, exc_info=True)
+                chain = None
+    if chain is None:
+        chain, lps = sample(*make_logprob_parts(init_parfile, keys, prior, x, y, yerr, device=dev))
     if chain_npy:
         np.save(chain_npy, chain)
     flat, flat_lp, summaries = mcmc_ops.summarize_chain(chain, lps, keys, burn=max(0, burn))
@@ -459,9 +489,9 @@ def fit_toas(
     residual_plot: str | None = None,
     seed: int = 0,
     device=None,
-    mcmc_delta: int = 0,
-    delta_fold: int = 0,
-    budget: float = deltafold.DEFAULT_BUDGET,
+    mcmc_delta: int | None = None,
+    delta_fold: int | None = None,
+    budget: float | None = None,
 ) -> dict:
     """Full fit pipeline; returns {'keys', 'values', 'stats', ...}.
 
@@ -470,10 +500,12 @@ def fit_toas(
     ``mcmc_delta=1`` samples a linear free set with the delta-basis
     likelihood; ``delta_fold=1`` takes the post-fit residuals of a linear
     free set through one basis product on ``device`` (both within
-    ``budget`` cycles; the JAX package's defaults are off).
+    ``budget`` cycles; None reads the knobs, whose defaults, the JAX
+    package's, are off).
     ``mcmc_seconds`` is the wall time of ``run_mcmc`` (None for the MLE).
     """
     dev = resolve_device(device)
+    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget)
     init_par = parfile_io.read_timing_model(par_in)[2]
     F0 = get_parameter_value(init_par["F0"])
     tim_table = tim_io.read_tim(timfile_path, comment="C")

@@ -417,3 +417,122 @@ class TestRefoldKernel:
         d = np.abs(np.concatenate(got) - np.concatenate(exact))
         assert np.max(np.minimum(d, 1.0 - d)) < 1e-8
         deltafold.clear_cache()
+
+
+def _survey_specs(n_sources: int, n_per: int = 2000, n_int: int = 3, seed: int = 21, differ: bool = True):
+    """Pulsed synthetic sources. With ``differ`` they differ as a sample's
+    do, within exact padding: per-source templates of one family, and the
+    first half with ``n_per`` events in its first interval and fewer in the
+    others, the second half (fainter) with ``n_per // 5`` and fewer, so the
+    survey makes two buckets, each of one max width. Without, every
+    interval holds ``n_per`` events under one template."""
+    from crimp_tpu_torch.pipelines import survey
+
+    rng = np.random.RandomState(seed)
+    edges = np.linspace(58000.0, 58008.0, n_int + 1)
+    specs = []
+    for i in range(n_sources):
+        tpl = {"model": "fourier", "nbrComp": 2, "norm": 1.0, "amp_1": 0.3, "amp_2": 0.1, "ph_1": 0.2,
+               "ph_2": 0.05}
+        counts = [n_per] * n_int
+        if differ:
+            tpl.update(amp_1=0.3 + 0.02 * i, ph_1=0.2 - 0.01 * i)
+            top = n_per if i < n_sources // 2 else n_per // 5
+            counts = [top] + [top - (top // 40) * ((i + k) % 5) for k in range(1, n_int)]
+        tm = {"PEPOCH": 58000.0, "F0": 0.14 + 0.003 * i, "F1": -1e-13}
+        chunks = []
+        for (lo, hi), n in zip(zip(edges[:-1], edges[1:]), counts):
+            t = rng.uniform(lo + 1e-6, hi - 1e-6, 8 * n)
+            ph = tm["F0"] * (t - 58000.0) * 86400.0
+            chunks.append(t[rng.uniform(0, 1.6, t.size) < 1 + 0.6 * np.cos(2 * np.pi * ph)][:n])
+        iv = {"ToA_tstart": edges[:-1], "ToA_tend": edges[1:],
+              "ToA_exposure": np.full(n_int, (edges[1] - edges[0]) * 86400.0)}
+        specs.append(survey.SourceSpec(name=f"src{i}", times=np.sort(np.concatenate(chunks)), timing_model=tm,
+                                       template=tpl, intervals=iv))
+    return specs
+
+
+@pytest.mark.gpu
+class TestSurveyOnCard:
+    def test_survey_matches_its_loop(self, cuda_device, monkeypatch):
+        """Per-row templates (fit_toas_batch_multi) in two buckets, within
+        survey.py's parity contract of the per-source loop."""
+        from crimp_tpu_torch.ops import multisource
+        from crimp_tpu_torch.pipelines import survey
+
+        specs = _survey_specs(12)
+        calls = []
+        real = multisource.fit_toas_batch_multi
+        monkeypatch.setattr(multisource, "fit_toas_batch_multi", lambda *a, **k: calls.append(1) or real(*a, **k))
+        frames = survey.survey_measure_toas(specs, phShiftRes=200, device=cuda_device)
+        info = survey.last_survey_info()
+        assert info["n_batched"] == 12 and info["demoted"] == {} and info["errors"] == {}
+        assert info["bucket_count"] == 2 and len(calls) == 2 and info["occupancy_pct"] < 100.0
+        for spec, frame in zip(specs, frames):
+            solo = survey.measure_source_toas(spec, phShiftRes=200, device=cuda_device)
+            for col in survey.SURVEY_TOA_COLUMNS:
+                if col not in ("phShift", "phShift_LL", "phShift_UL", "Hpower", "redChi2"):
+                    assert np.array_equal(frame[col], solo[col]), (spec.name, col)
+            np.testing.assert_allclose(frame["phShift"], solo["phShift"], rtol=0, atol=1e-6)
+            for col in ("phShift_LL", "phShift_UL"):
+                assert np.max(np.abs(frame[col] - solo[col])) <= 2 * np.pi / 200 * (1 + 1e-9), (spec.name, col)
+            np.testing.assert_allclose(frame["Hpower"], solo["Hpower"], rtol=1e-5)
+            np.testing.assert_allclose(frame["redChi2"], solo["redChi2"], rtol=1e-6)
+            assert np.all(frame["Hpower"] > 20)
+
+    def test_sources_fold_bitwise_and_h_test_match_their_loop(self, cuda_device):
+        from crimp_tpu_torch.ops import multisource
+        from crimp_tpu_torch.ops.ephem import spin_frequency_host
+        from crimp_tpu_torch.models import timing
+
+        specs = _survey_specs(20, n_per=300, n_int=4, seed=13, differ=False)
+        tms = [s.timing_model for s in specs]
+        segs = [[s.times[(s.times >= lo) & (s.times <= hi)] for lo, hi in
+                 zip(s.intervals["ToA_tstart"], s.intervals["ToA_tend"])] for s in specs]
+        phases, t_refs = multisource.fold_sources(tms, segs, device=cuda_device)
+        freqs = [spin_frequency_host(timing.resolve(tm), t)[0] for tm, t in zip(tms, t_refs)]
+        h = multisource.h_power_sources(segs, freqs, device=cuda_device)
+        for i in range(len(specs)):
+            solo, _ = anchored.fold_segments(tms[i], segs[i], delta_fold=0, device=cuda_device)
+            for a, b in zip(phases[i], solo):
+                assert np.array_equal(a, b)
+            h_solo = multisource.h_power_sources(segs[i:i + 1], freqs[i:i + 1], device=cuda_device)[0]
+            np.testing.assert_allclose(h[i], h_solo, rtol=1e-5)
+
+
+@pytest.mark.gpu
+class TestResilienceOnCard:
+    def test_real_out_of_memory_classifies_resource_exhausted(self, cuda_device):
+        from crimp_tpu_torch.resilience import FailureKind, classify
+
+        free, _ = torch.cuda.mem_get_info(cuda_device)
+        with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+            torch.empty(int(free) * 2, dtype=torch.uint8, device=cuda_device)
+        assert classify(info.value) is FailureKind.RESOURCE_EXHAUSTED
+        torch.cuda.empty_cache()
+
+    def test_kernel_error_passes_through_the_grid_ladder(self, cuda_device, monkeypatch):
+        from crimp_tpu_torch.resilience import KernelError, faultinject
+
+        t = torch.as_tensor(_pulsed(50000), device=cuda_device)
+        lib = z2_grid._lib()
+
+        class FailingLaunch:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def z2_grid_sums(*args):
+                return 700  # cudaErrorIllegalAddress
+
+        monkeypatch.setattr(z2_grid, "_lib", lambda: FailingLaunch())
+        monkeypatch.setenv("CRIMP_TORCH_FAULTS", "oom:harmonic_sums:1")
+        faultinject.reset()
+        # the factorized rung fails by injection; the streamed K2 rung's
+        # launch fails, and that KernelError is not taken to the exact rung
+        with pytest.raises(KernelError, match="CUDA error 700"):
+            search.z2_power_grid(t, 0.2495, 1e-6, 500, 2, device=cuda_device, mxu=True)
+        monkeypatch.delenv("CRIMP_TORCH_FAULTS")
+        faultinject.reset()
+        with pytest.raises(KernelError):
+            search.z2_power_grid(t, 0.2495, 1e-6, 500, 2, device=cuda_device)

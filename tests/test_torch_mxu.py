@@ -99,9 +99,9 @@ class TestFactorizedBudget:
 
     def test_default_reseed_at_high_signal_to_noise(self):
         """A strong pulse (Z^2 ~ 3e4): with the polynomial pair the rotation's
-        amplitude error is coherent, so the JAX stride of 64 drifts well past
-        the exact grid's own f32 error against the f64-trig statistic, and the
-        port's default of 16 stays within it."""
+        amplitude error is coherent, so the default stride of 64 (the JAX
+        package's) drifts well past the exact grid's own f32 error against
+        the f64-trig statistic, and the optional stride of 16 stays within it."""
         rng = np.random.RandomState(1)
         t = np.sort(rng.uniform(-2e7, 2e7, 200000))
         t = t[rng.uniform(0, 1, t.size) < 0.5 * (1 + 0.9 * np.cos(2 * np.pi * 0.1432825 * t))][:70000]
@@ -112,10 +112,50 @@ class TestFactorizedBudget:
         exact = np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu").numpy() - truth))
         dev = {rs: np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu", mxu=True,
                                                        reseed=rs).numpy() - truth))
-               for rs in (64, search.GRID_MXU_RESEED)}
+               for rs in (search.GRID_MXU_RESEED, 16)}
+        assert search.GRID_MXU_RESEED == 64
         assert truth.max() > 2e4
-        assert dev[search.GRID_MXU_RESEED] <= max(exact, budget(2))
-        assert dev[64] > 2 * dev[search.GRID_MXU_RESEED]
+        assert dev[16] <= max(exact, budget(2))
+        assert dev[search.GRID_MXU_RESEED] > 2 * dev[16]
+
+
+class TestDefaultArguments:
+    """The factorized grids at their default arguments (no ``reseed=``) in
+    both packages, at test_1d_parity's budget and argmax check, the
+    polynomial pair on both sides; the port's default is its reseed=64 call
+    bit for bit, and 64 is what crimp_tpu resolves with no tuner cache."""
+
+    @staticmethod
+    def check(port_fn, jax_fn, nharm):
+        from crimp_tpu.ops import autotune
+
+        got = port_fn().numpy()
+        ref = np.asarray(jax_fn())
+        assert np.max(np.abs(got - ref)) < budget(nharm)
+        assert int(np.argmax(got)) == int(np.argmax(ref))
+        np.testing.assert_array_equal(got, port_fn(reseed=64).numpy())
+        assert autotune.grid_mxu_defaults()["reseed"] == search.GRID_MXU_RESEED
+
+    def test_1d(self, sec):
+        freqs = np.linspace(0.2495, 0.2505, 733)
+        f0, df = freqs[0], float(freqs[1] - freqs[0])
+        self.check(lambda **kw: search.z2_power_grid(sec, f0, df, len(freqs), 3, device="cpu", mxu=True,
+                                                     **kw),
+                   lambda: jax_search.z2_power_grid(sec, f0, df, len(freqs), 3, poly=True, mxu=True), 3)
+
+    def test_2d(self, sec):
+        fdots = np.array([-1e-11, 0.0, 1e-11])
+        self.check(lambda **kw: search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, device="cpu",
+                                                        mxu=True, **kw),
+                   lambda: jax_search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, poly=True,
+                                                       mxu=True), 3)
+
+    def test_3d(self, sec):
+        fdots, fddots = np.array([-2e-7, 0.0, 2e-7]), np.array([-3e-11, 0.0, 3e-11])
+        self.check(lambda **kw: search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2,
+                                                        device="cpu", mxu=True, **kw),
+                   lambda: jax_search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2, poly=True,
+                                                       mxu=True), 2)
 
 
 class TestFactorizedPieces:

@@ -231,6 +231,15 @@ _IMPORT_CHECK = r"""
 import sys
 sys.path.insert(0, {repo!r})
 from crimp_tpu_torch.ops import search, semicoherent, z2_general, z2_grid
+from crimp_tpu_torch import knobs, obs, resilience
+from crimp_tpu_torch.models import convert
+from crimp_tpu_torch.obs import core, heartbeat
+from crimp_tpu_torch.ops import autotune, multisource, reduce
+from crimp_tpu_torch.parallel import multihost
+from crimp_tpu_torch.pipelines import survey
+from crimp_tpu_torch.resilience import faultinject, policy, taxonomy
+from crimp_tpu_torch.utils import ns_ab, reduce_probe
+import chip_smoke
 bad = [m for m in sys.modules if m in ("jax", "crimp_tpu") or m.startswith(("jax.", "crimp_tpu."))]
 print("BAD", bad)
 """
