@@ -96,6 +96,33 @@ REGISTRY: dict[str, Knob] = _build_registry((
     Knob("CRIMP_TORCH_MULTISOURCE_BATCH", "unset (resolved source block)", "int",
          consumer="ops/multisource.py via ops/autotune.py",
          doc="hard cap on sources per batched survey dispatch (0 = no cap)"),
+    Knob("CRIMP_TORCH_AUTOTUNE", "auto", "enum", consumer="ops/autotune.py",
+         doc="tuner-cache policy: off / auto (cached verdicts only); eager (1/on) raises "
+             "until the port has a tuner"),
+    Knob("CRIMP_TORCH_AUTOTUNE_CACHE", "~/.cache/crimp_tpu_torch/autotune.json", "path",
+         consumer="ops/autotune.py",
+         doc="fingerprinted verdict-cache location"),
+    # -- serving (host-side orchestration; numeric-neutral by contract) -----
+    Knob("CRIMP_TORCH_SERVE_QUEUE", "64", "int",
+         consumer="crimp_tpu_torch/serve/admission.py",
+         doc="admission-queue capacity per priority class; a full class rejects new requests "
+             "with a typed RESOURCE_EXHAUSTED (backpressure, never unbounded blocking)"),
+    Knob("CRIMP_TORCH_SERVE_DEADLINE_MS", "unset (no default deadline)", "float",
+         consumer="crimp_tpu_torch/serve/scheduler.py",
+         doc="default per-request deadline for requests submitted without one; the scheduler "
+             "degrades pre-emptively when the remaining budget cannot afford the top rung"),
+    Knob("CRIMP_TORCH_SERVE_BREAKER", "5", "int",
+         consumer="crimp_tpu_torch/serve/breaker.py",
+         doc="consecutive classified failures at a ladder rung before its circuit breaker "
+             "opens (half-opens on probe); 0 disables"),
+    Knob("CRIMP_TORCH_SERVE_WARM_BATCH", "unset (batched warm path on)", "int",
+         consumer="crimp_tpu_torch/serve/engine.py via ops/autotune.py",
+         doc="warm re-timing path: 1 refolds every warm client of a round in one K4 launch, "
+             "0 pins the per-request loop; the refolded phases are the same bits either way"),
+    Knob("CRIMP_TORCH_SERVE_PREP_OVERLAP", "unset (overlap on)", "bool",
+         consumer="crimp_tpu_torch/serve/engine.py",
+         doc="overlap host-side request prep with the previous round's dispatch on one worker "
+             "thread; 0 pins the serial prep order (results bit-identical either way)"),
     # -- observability (host-side telemetry; numeric-neutral by contract) ---
     Knob("CRIMP_TORCH_OBS", "unset (off)", "bool", consumer="crimp_tpu_torch/obs",
          doc="flight-recorder telemetry: spans/counters + an atomic run manifest"),

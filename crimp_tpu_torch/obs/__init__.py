@@ -1,6 +1,6 @@
 """crimp_tpu_torch.obs: host-side flight-recorder telemetry.
 
-Port of the core and heartbeat parts of ``crimp_tpu/obs``:
+Port of ``crimp_tpu/obs`` but its ledger, cost model and roofline:
 
 - **Spans + metrics core** (:mod:`crimp_tpu_torch.obs.core`): hierarchical
   spans (run -> pipeline stage -> kernel) plus typed counters and gauges,
@@ -8,6 +8,12 @@ Port of the core and heartbeat parts of ``crimp_tpu/obs``:
   JSON manifest in the JAX package's schema) and :func:`mark_degraded`.
 - **Heartbeats** (:mod:`crimp_tpu_torch.obs.heartbeat`): :func:`beat`,
   periodic progress/ETA events and an atomic sidecar.
+- **Readers**: :mod:`~crimp_tpu_torch.obs.manifest` (schema validation and
+  loading), :mod:`~crimp_tpu_torch.obs.report` (summary, diff, Chrome
+  trace, Prometheus), :mod:`~crimp_tpu_torch.obs.salvage` (a killed run's
+  event stream into a manifest; live tail), :mod:`~crimp_tpu_torch.obs.merge`
+  (per-host streams of one run into one manifest), and the CLI over them,
+  ``python -m crimp_tpu_torch.obs``.
 
 Disabled (``CRIMP_TORCH_OBS`` unset/off, the default) every hook is a
 strict no-op: :func:`span` returns a shared singleton and

@@ -25,6 +25,11 @@ FAULT_POINTS = frozenset({
     "harmonic_sums",  # ops/search.py: grid harmonic-sum dispatch
     "survey_bucket",  # pipelines/survey.py: batched bucket processing
     "mcmc_step",      # pipelines/fit_toas.py: delta-basis MCMC dispatch
+    "tuner_cache",    # ops/autotune.py: verdict-cache JSON load
+    "serve_admission",   # serve/admission.py: request admission
+    "serve_dispatch",    # serve/engine.py: batched/warm request dispatch
+    "serve_deadline",    # serve/scheduler.py: deadline-budget evaluation
+    "serve_warm_batch",  # serve/engine.py: stacked warm-refold dispatch
 })
 
 # Spec kind name -> FailureKind the injected exception will classify as.

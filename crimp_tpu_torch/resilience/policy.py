@@ -30,6 +30,7 @@ LADDERS = {
     "grid": ("grid_mxu", "streamed", "exact"),
     "fold": ("delta_fold", "exact_refold"),
     "mcmc": ("delta_basis", "exact_likelihood"),
+    "serve_warm": ("warm_batched", "solo"),
 }
 
 

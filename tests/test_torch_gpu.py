@@ -536,3 +536,99 @@ class TestResilienceOnCard:
         faultinject.reset()
         with pytest.raises(KernelError):
             search.z2_power_grid(t, 0.2495, 1e-6, 500, 2, device=cuda_device)
+
+
+def _serve_specs(n_clients: int = 4, seed: int = 30):
+    """tests/test_torch_serve_engine.py's clients with more events a
+    client, on the card's path."""
+    return _survey_specs(n_clients, n_per=1500, n_int=2, seed=seed, differ=False)
+
+
+def _moved(spec, f0_bump):
+    from crimp_tpu_torch.pipelines import survey
+
+    return survey.SourceSpec(name=spec.name, times=spec.times,
+                             timing_model={**spec.timing_model, "F0": spec.timing_model["F0"] + f0_bump},
+                             template=spec.template, intervals=spec.intervals)
+
+
+@pytest.mark.gpu
+class TestServingOnCard:
+    def test_warm_batched_round_is_one_k4_launch_bitwise_the_solo_rung(self, cuda_device, monkeypatch):
+        """warm_batch=1 refolds every warm client in one K4 launch a round,
+        warm_batch=0 one launch a client; the refolded phases are the same
+        bits, and the frames agree within the survey's parity contract."""
+        from crimp_tpu_torch import serve
+        from crimp_tpu_torch.ops import deltafold
+
+        specs = _serve_specs()
+        got = {"batched": {}, "solo": {}}
+        real_batch, real_fold = deltafold.delta_refold_batch, deltafold.cached_fold
+
+        def batch(tms, seg_lists, tags=None, **kw):
+            out = real_batch(tms, seg_lists, tags=tags, **kw)
+            got["batched"].update({t: np.concatenate(pl) for t, pl in zip(tags, out[0]) if pl is not None})
+            return out
+
+        def fold(*args, tag=None, **kw):
+            folded, info = real_fold(*args, tag=tag, **kw)
+            if info.get("mode") == "delta":
+                got["solo"][tag] = np.array(folded)
+            return folded, info
+
+        monkeypatch.setattr(deltafold, "delta_refold_batch", batch)
+        monkeypatch.setattr(deltafold, "cached_fold", fold)
+        frames, launches = {}, {}
+        for pin in (1, 0):
+            deltafold.clear_cache()
+            eng = serve.ServingEngine(phShiftRes=200, warm_batch=pin, device=cuda_device)
+            for s in specs:
+                eng.submit(s)
+            assert all(r.status == "ok" for r in eng.step())
+            for s in specs:
+                eng.submit(_moved(s, 1e-11))
+            deltafold.reset_launches()
+            res = eng.step()
+            launches[pin] = deltafold.LAUNCHES["refold"]
+            assert all(r.status == "ok" and r.path == "delta_fold:delta" for r in res)
+            frames[pin] = [r.frame for r in res]
+            eng.close()
+        assert launches == {1: 1, 0: len(specs)}
+        for s in specs:
+            assert np.array_equal(got["batched"][s.name], got["solo"][s.name]), s.name
+        for a, b in zip(frames[1], frames[0]):
+            np.testing.assert_allclose(a["phShift"], b["phShift"], rtol=0, atol=1e-6)
+            np.testing.assert_allclose(a["Hpower"], b["Hpower"], rtol=1e-5)
+            np.testing.assert_array_equal(a["nbr_events"], b["nbr_events"])
+        deltafold.clear_cache()
+
+    def test_kernel_error_propagates_out_of_step(self, cuda_device, monkeypatch):
+        """A K4 launch failure inside a warm batch leaves step() as
+        KernelError: no solo retry, no exact fold."""
+        from crimp_tpu_torch import serve
+        from crimp_tpu_torch.ops import deltafold
+        from crimp_tpu_torch.resilience import KernelError
+
+        specs = _serve_specs(3, seed=31)
+        deltafold.clear_cache()
+        eng = serve.ServingEngine(phShiftRes=200, warm_batch=1, device=cuda_device)
+        for s in specs:
+            eng.submit(s)
+        eng.step()
+        lib = deltafold._lib()
+
+        class FailingLaunch:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def deltafold_refold(*args):
+                return 700  # cudaErrorIllegalAddress
+
+        monkeypatch.setattr(deltafold, "_lib", lambda: FailingLaunch())
+        for s in specs:
+            eng.submit(_moved(s, 1e-11))
+        with pytest.raises(KernelError, match="700"):
+            eng.step()
+        eng.close()
+        deltafold.clear_cache()

@@ -24,7 +24,9 @@ torch.set_num_threads(2)
 
 SUFFIXES = {"GRID_FASTPATH", "GRID_MXU", "STREAM_MIN_EVENTS", "TOA_DENSE_WINDOW", "DELTA_FOLD",
             "DELTA_FOLD_BUDGET", "FOLD_CACHE", "MCMC_DELTA", "MULTISOURCE", "MULTISOURCE_MAX_PAD",
-            "MULTISOURCE_BATCH", "OBS", "OBS_DIR", "OBS_EVENTS", "OBS_HEARTBEAT_S", "OBS_HOST", "FAULTS"}
+            "MULTISOURCE_BATCH", "OBS", "OBS_DIR", "OBS_EVENTS", "OBS_HEARTBEAT_S", "OBS_HOST", "FAULTS",
+            "AUTOTUNE", "AUTOTUNE_CACHE", "SERVE_QUEUE", "SERVE_DEADLINE_MS", "SERVE_BREAKER", "SERVE_WARM_BATCH",
+            "SERVE_PREP_OVERLAP"}
 
 
 @pytest.fixture(autouse=True)
@@ -40,9 +42,10 @@ class TestRegistry:
         assert {name[len(knobs.PREFIX):] for name in knobs.REGISTRY} == SUFFIXES
         for name, k in knobs.REGISTRY.items():
             ref = jax_knobs.REGISTRY["CRIMP_TPU_" + name[len(knobs.PREFIX):]]
-            # no tuner in the port: "off unless a tuner winner" is plain off
-            default = ref.default.replace(" unless a tuner winner", "").replace("jax process index",
-                                                                                "torch.distributed rank")
+            # no tuner in the port: "off unless a tuner winner" is plain off;
+            # the port keeps its own verdict-cache file
+            default = ref.default.replace(" unless a tuner winner", "").replace(
+                "jax process index", "torch.distributed rank").replace("/crimp_tpu/", "/crimp_tpu_torch/")
             assert (k.kind, k.default, k.numeric) == (ref.kind, default, ref.numeric), name
         assert "CRIMP_TORCH_MXU_BF16" not in knobs.REGISTRY
 

@@ -165,13 +165,14 @@ class TestTaxonomy:
 class TestFaultInjector:
     def test_points_are_a_subset_of_jax(self):
         assert faultinject.FAULT_POINTS == {"fold_sources", "fold_cache", "harmonic_sums", "survey_bucket",
-                                            "mcmc_step"}
+                                            "mcmc_step", "tuner_cache", "serve_admission", "serve_dispatch",
+                                            "serve_deadline", "serve_warm_batch"}
         assert faultinject.FAULT_POINTS <= jax_faultinject.FAULT_POINTS
         assert faultinject.KIND_NAMES.keys() == jax_faultinject.KIND_NAMES.keys()
 
     @pytest.mark.parametrize("spec", ["zap:fold_cache:1", "oom:fold_cache:x", "oom:fold_cache:0",
                                       "oom:fold_cache:0+", "oom:fold_cache:x+", "oom:fold_cache",
-                                      "oom:tuner_cache:1"])
+                                      "oom:scan_chunk:1"])
     def test_typos_fail_loudly(self, monkeypatch, spec):
         monkeypatch.setenv("CRIMP_TORCH_FAULTS", spec)
         with pytest.raises(ValueError, match="CRIMP_TORCH_FAULTS"):
@@ -208,7 +209,7 @@ class TestPolicy:
         """crimp_tpu's ladders for the engines the port has; none moves work
         off the card (no pinned-CPU device rung)."""
         assert policy.LADDERS == {k: v for k, v in jax_policy.LADDERS.items() if k in policy.LADDERS}
-        assert set(policy.LADDERS) == {"multisource", "grid", "fold", "mcmc"}
+        assert set(policy.LADDERS) == {"multisource", "grid", "fold", "mcmc", "serve_warm"}
         with pytest.raises(ValueError, match="rung"):
             policy.record_degradation("grid", "warp_drive")
         with obs.run("ladder"):

@@ -228,19 +228,15 @@ ptxas info    : Used 200 registers, 448 bytes cmem[0]"""
 
 
 _IMPORT_CHECK = r"""
-import sys
+import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
-from crimp_tpu_torch.ops import search, semicoherent, z2_general, z2_grid
-from crimp_tpu_torch import knobs, obs, resilience
-from crimp_tpu_torch.models import convert
-from crimp_tpu_torch.obs import core, heartbeat
-from crimp_tpu_torch.ops import autotune, multisource, reduce
-from crimp_tpu_torch.parallel import multihost
-from crimp_tpu_torch.pipelines import survey
-from crimp_tpu_torch.resilience import faultinject, policy, taxonomy
-from crimp_tpu_torch.utils import ns_ab, reduce_probe
+import crimp_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(crimp_tpu_torch.__path__, "crimp_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
 import chip_smoke
 bad = [m for m in sys.modules if m in ("jax", "crimp_tpu") or m.startswith(("jax.", "crimp_tpu."))]
+print("MODULES", len(names), "serve" in " ".join(names))
 print("BAD", bad)
 """
 
@@ -249,4 +245,5 @@ def test_new_modules_import_neither_jax_nor_crimp_tpu():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK.format(repo=str(REPO))], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert "MODULES" in proc.stdout and " True" in proc.stdout, proc.stdout
     assert "BAD []" in proc.stdout, proc.stdout
