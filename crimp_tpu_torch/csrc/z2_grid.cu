@@ -18,7 +18,9 @@
 // ops/fasttrig.py, or sincosf(2*pi*frac) on the same f32 argument) and the
 // Chebyshev recurrence to nharm harmonics; C_k, S_k are the sums over events
 // of w_e*cos_k, w_e*sin_k (w_e = 1 when no weights are given).
-// f_tile = f0 + tile*(T*df), T = 256.
+// f_tile = f0 + (tile0 + tile)*(T*df), T = 256: tile0 > 0 computes the
+// tiles [tile0, tile0 + n_tiles) of the grid that starts at f0, bit for bit
+// the same tiles of one launch over the whole grid (a chunked scan).
 //
 // What bounds it on this card: f32 arithmetic. Each (trial, event) pair
 // costs about 26 + 6*nharm FLOPs (FMA = 2; see z2_grid.flops_per_pair),
@@ -135,7 +137,7 @@ __global__ void __launch_bounds__(TRIAL_TILE)
 z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, double df,
                const double* __restrict__ half_fd, int n_fdot,
                const double* __restrict__ sixth_fdd, const float* __restrict__ w,
-               int n_tiles, int per_split, float* __restrict__ dst) {
+               int n_tiles, int tile0, int per_split, float* __restrict__ dst) {
   __shared__ float2 s_pb[EVENT_CHUNK];              // (base, b) per staged event
   __shared__ float s_w[EXT ? EVENT_CHUNK : 1];      // w per staged event
   const int tile = blockIdx.x;
@@ -143,7 +145,7 @@ z2_tile_kernel(const double* __restrict__ t, int n, double f0, double tdf, doubl
   const int split = blockIdx.z;
   const int j = threadIdx.x;
 
-  const double f_tile = __dadd_rn(f0, __dmul_rn(static_cast<double>(tile), tdf));
+  const double f_tile = __dadd_rn(f0, __dmul_rn(static_cast<double>(tile0 + tile), tdf));
   const double hf = half_fd[row % n_fdot];
   const bool has_r = EXT && sixth_fdd != nullptr;
   const double sf = has_r ? sixth_fdd[row / n_fdot] : 0.0;
@@ -251,17 +253,17 @@ __global__ void z2_reduce_splits(const float* __restrict__ partial, int n_split,
 template <int NH>
 void launch_tiles(bool ext, bool poly, dim3 grid, cudaStream_t stream, const double* t, int n,
                   double f0, double tdf, double df, const double* half_fd, int n_fdot,
-                  const double* sixth_fdd, const float* w, int n_tiles, int per_split,
+                  const double* sixth_fdd, const float* w, int n_tiles, int tile0, int per_split,
                   float* dst) {
   if (!ext) {
     z2_tile_kernel<NH, false, true><<<grid, TRIAL_TILE, 0, stream>>>(
-        t, n, f0, tdf, df, half_fd, n_fdot, nullptr, nullptr, n_tiles, per_split, dst);
+        t, n, f0, tdf, df, half_fd, n_fdot, nullptr, nullptr, n_tiles, tile0, per_split, dst);
   } else if (poly) {
     z2_tile_kernel<NH, true, true><<<grid, TRIAL_TILE, 0, stream>>>(
-        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, per_split, dst);
+        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, tile0, per_split, dst);
   } else {
     z2_tile_kernel<NH, true, false><<<grid, TRIAL_TILE, 0, stream>>>(
-        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, per_split, dst);
+        t, n, f0, tdf, df, half_fd, n_fdot, sixth_fdd, w, n_tiles, tile0, per_split, dst);
   }
 }
 
@@ -278,7 +280,7 @@ extern "C" int z2_empty(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sums for the grid f0 + (tile*TRIAL_TILE + j)*df, one row per (fddot, fdot)
+// Sums for the grid f0 + ((tile0 + tile)*TRIAL_TILE + j)*df, one row per (fddot, fdot)
 // pair: half_fd holds 0.5*fdot (n_fdot), sixth_fdd fdd/6 (n_fddot; null for
 // the 2-D grid, then n_fddot must be 1), w the per-event f32 weights (null:
 // all 1). poly selects the polynomial sin/cos (1) or sincosf (0).
@@ -288,11 +290,12 @@ extern "C" int z2_empty(void* stream) {
 // a second kernel reduces them into out in split order.
 extern "C" int z2_grid_sums(const double* t, int n, double f0, double tdf, double df,
                             const double* half_fd, int n_fdot, const double* sixth_fdd,
-                            int n_fddot, const float* w, int n_tiles, int nharm, int poly,
-                            int n_split, int per_split, float* partial, float* out,
+                            int n_fddot, const float* w, int n_tiles, int tile0, int nharm,
+                            int poly, int n_split, int per_split, float* partial, float* out,
                             void* stream) {
   const long long n_rows = static_cast<long long>(n_fdot) * n_fddot;
-  if (n < 1 || n_fdot < 1 || n_fddot < 1 || n_tiles < 1 || n_split < 1 || per_split < 1 ||
+  if (n < 1 || n_fdot < 1 || n_fddot < 1 || n_tiles < 1 || tile0 < 0 || n_split < 1 || per_split < 1 ||
+      static_cast<long long>(tile0) + n_tiles > 2147483647LL ||
       per_split % EVENT_CHUNK != 0 || n_rows > 65535 || n_split > 65535 ||
       (sixth_fdd == nullptr && n_fddot != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -307,7 +310,7 @@ extern "C" int z2_grid_sums(const double* t, int n, double f0, double tdf, doubl
 #define Z2_CASE(NH)                                                                    \
   case NH:                                                                             \
     launch_tiles<NH>(ext, poly != 0, grid, s, t, n, f0, tdf, df, half_fd, n_fdot,      \
-                     sixth_fdd, w, n_tiles, per_split, dst);                           \
+                     sixth_fdd, w, n_tiles, tile0, per_split, dst);                    \
     break;
     Z2_CASE(1) Z2_CASE(2) Z2_CASE(3) Z2_CASE(4) Z2_CASE(5)
     Z2_CASE(6) Z2_CASE(7) Z2_CASE(8) Z2_CASE(9) Z2_CASE(10)

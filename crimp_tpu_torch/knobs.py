@@ -65,21 +65,28 @@ REGISTRY: dict[str, Knob] = _build_registry((
     Knob("CRIMP_TORCH_GRID_FASTPATH", "auto (nharm-based)", "bool",
          numeric_key="grid_fastpath", consumer="ops/search.py",
          doc="uniform-grid kernel K2 vs the general exact-phase kernel K3"),
-    Knob("CRIMP_TORCH_GRID_MXU", "unset (off)", "int",
-         numeric_key="grid_mxu", consumer="ops/search.py",
+    Knob("CRIMP_TORCH_GRID_BLOCKS", "unset (autotuner)", "blocks",
+         numeric_key="grid_blocks", consumer="ops/search.py via ops/autotune.py",
+         doc="hard (event_block, trial_block) override for the grid kernels: the event split "
+             "length per_split and K2's trial tile"),
+    Knob("CRIMP_TORCH_GRID_MXU", "unset (off unless a tuner winner)", "int",
+         numeric_key="grid_mxu", consumer="ops/search.py via ops/autotune.py",
          doc="factorized angle-addition matmul grids on/off"),
-    Knob("CRIMP_TORCH_DELTA_FOLD", "unset (off)", "int",
-         numeric_key="delta_fold", consumer="ops/anchored.py + pipelines/fit_toas.py",
+    Knob("CRIMP_TORCH_MXU_BF16", "unset (off unless a tuner winner)", "int",
+         numeric_key="grid_mxu", consumer="ops/toafit.py + ops/search.py via ops/autotune.py",
+         doc="bf16 operands (f32 accumulation) for profile sweeps and factorized grids"),
+    Knob("CRIMP_TORCH_DELTA_FOLD", "unset (off unless a tuner winner)", "int",
+         numeric_key="delta_fold", consumer="ops/anchored.py via ops/autotune.py",
          doc="incremental delta-fold engine on/off"),
     Knob("CRIMP_TORCH_DELTA_FOLD_BUDGET", "1e-9 cycles", "float",
          numeric_key="delta_fold", consumer="ops/anchored.py + pipelines/fit_toas.py",
          doc="delta-fold and delta-MCMC precision-guard budget"),
-    Knob("CRIMP_TORCH_MCMC_DELTA", "unset (off)", "int",
-         numeric_key="mcmc_delta", consumer="pipelines/fit_toas.py",
+    Knob("CRIMP_TORCH_MCMC_DELTA", "unset (off unless a tuner winner)", "int",
+         numeric_key="mcmc_delta", consumer="pipelines/fit_toas.py via ops/autotune.py",
          doc="delta-basis MCMC likelihood on/off"),
     # -- throughput / caching (bit-identical by construction) ---------------
     Knob("CRIMP_TORCH_TOA_DENSE_WINDOW", "unset (auto: 32)", "int",
-         consumer="ops/toafit.py",
+         consumer="ops/toafit.py via ops/autotune.py",
          doc="dense error-scan first-window width (any value is bit-identical)"),
     Knob("CRIMP_TORCH_STREAM_MIN_EVENTS", "unset (2^22)", "int",
          consumer="ops/search.py",
@@ -97,11 +104,16 @@ REGISTRY: dict[str, Knob] = _build_registry((
          consumer="ops/multisource.py via ops/autotune.py",
          doc="hard cap on sources per batched survey dispatch (0 = no cap)"),
     Knob("CRIMP_TORCH_AUTOTUNE", "auto", "enum", consumer="ops/autotune.py",
-         doc="tuner-cache policy: off / auto (cached verdicts only); eager (1/on) raises "
-             "until the port has a tuner"),
+         doc="tuner policy: off / auto (cached winners only) / eager"),
     Knob("CRIMP_TORCH_AUTOTUNE_CACHE", "~/.cache/crimp_tpu_torch/autotune.json", "path",
          consumer="ops/autotune.py",
          doc="fingerprinted verdict-cache location"),
+    Knob("CRIMP_TORCH_COMPILE_CACHE", "build/kernels (in the checkout)", "path",
+         consumer="utils/platform.py + ops/z2_grid.py",
+         doc="nvcc build directory of the hand kernels; 0/off/none builds into a fresh "
+             "per-process directory"),
+    Knob("CRIMP_TORCH_TRACE_DIR", "unset", "path", consumer="utils/profiling.py",
+         doc="torch.profiler trace directory for profiling.trace()"),
     # -- serving (host-side orchestration; numeric-neutral by contract) -----
     Knob("CRIMP_TORCH_SERVE_QUEUE", "64", "int",
          consumer="crimp_tpu_torch/serve/admission.py",
@@ -135,10 +147,25 @@ REGISTRY: dict[str, Knob] = _build_registry((
          consumer="crimp_tpu_torch/obs/heartbeat.py",
          doc="heartbeat period: progress/ETA events + an atomically rewritten "
              "sidecar; 0/off disables"),
+    Knob("CRIMP_TORCH_OBS_COST", "on (when obs is on)", "bool",
+         consumer="crimp_tpu_torch/obs/costmodel.py",
+         doc="cost-model capture (FLOPs/bytes per kernel call) feeding the manifest costmodel "
+             "table and `obs roofline`; 0 disables"),
+    Knob("CRIMP_TORCH_OBS_LEDGER", "unset (off)", "path",
+         consumer="crimp_tpu_torch/obs/ledger.py",
+         doc="append-only performance-ledger JSONL (`obs ledger add|show|check`)"),
     Knob("CRIMP_TORCH_OBS_HOST", "unset (torch.distributed rank)", "int",
          consumer="crimp_tpu_torch/obs/core.py",
          doc="host index override for obs artifact suffixing"),
     # -- resilience ---------------------------------------------------------
+    Knob("CRIMP_TORCH_RETRIES", "1", "int",
+         consumer="crimp_tpu_torch/resilience/policy.py",
+         doc="same-mode retries after a transient classified failure "
+             "(a successful retry is bit-identical)"),
+    Knob("CRIMP_TORCH_BACKOFF_S", "0.05", "float",
+         consumer="crimp_tpu_torch/resilience/policy.py",
+         doc="base retry backoff; doubles per attempt with deterministic "
+             "jitter (0 disables sleeping)"),
     Knob("CRIMP_TORCH_FAULTS", "unset (injector disarmed)", "str",
          consumer="crimp_tpu_torch/resilience/faultinject.py",
          doc="deterministic fault plan 'kind:point:n,...' for chaos tests "

@@ -1,6 +1,6 @@
 """crimp_tpu_torch.obs: host-side flight-recorder telemetry.
 
-Port of ``crimp_tpu/obs`` but its ledger, cost model and roofline:
+Port of ``crimp_tpu/obs``:
 
 - **Spans + metrics core** (:mod:`crimp_tpu_torch.obs.core`): hierarchical
   spans (run -> pipeline stage -> kernel) plus typed counters and gauges,
@@ -14,6 +14,12 @@ Port of ``crimp_tpu/obs`` but its ledger, cost model and roofline:
   event stream into a manifest; live tail), :mod:`~crimp_tpu_torch.obs.merge`
   (per-host streams of one run into one manifest), and the CLI over them,
   ``python -m crimp_tpu_torch.obs``.
+- **Cost model and roofline** (:mod:`~crimp_tpu_torch.obs.costmodel`,
+  :mod:`~crimp_tpu_torch.obs.roofline`): FLOP and byte counts per kernel
+  call, joined against the kernel spans' device time into each kernel's
+  share of the H100 roofline (``obs roofline``).
+- **Ledger** (:mod:`~crimp_tpu_torch.obs.ledger`): the append-only
+  performance ledger, ``obs ledger add|show|check``.
 
 Disabled (``CRIMP_TORCH_OBS`` unset/off, the default) every hook is a
 strict no-op: :func:`span` returns a shared singleton and
@@ -31,6 +37,8 @@ from crimp_tpu_torch.obs.core import (  # noqa: F401
     gauge_set,
     last_manifest_path,
     mark_degraded,
+    record_cost,
+    record_device_span,
     record_numeric_mode,
     record_span,
     run,

@@ -1,12 +1,14 @@
 """Reporter CLI: ``python -m crimp_tpu_torch.obs <subcommand>``.
 
-Port of ``crimp_tpu/obs/cli.py``, the subcommands whose modules the port
-has:
+Port of ``crimp_tpu/obs/cli.py``:
 
 - ``summary MANIFEST``        one-run summary (spans, counters, knobs)
 - ``diff A B``                attribute A->B slowdown; flag knob/numeric drift
 - ``trace MANIFEST [-o OUT]`` export Chrome trace-event JSON (Perfetto)
 - ``prom MANIFEST [-o OUT]``  export Prometheus text exposition
+- ``roofline MANIFEST``       join cost-model rows x kernel spans into a
+                              per-kernel share-of-roofline table
+                              (``--fail-below PCT``)
 - ``validate MANIFEST``       schema-check a manifest
 - ``merge STREAMS...``        join per-host event streams of one multi-host
                               run into a single validated manifest
@@ -17,10 +19,12 @@ has:
                               liveness probe: exit 0 when the sidecar is
                               fresher than N seconds, 1 when stale, missing
                               or torn
+- ``ledger add|show|check``   the append-only performance ledger
 
 Exit codes: 0 = ok, 1 = validation problems / drift found with
-``--fail-on-drift`` / tail without a run end / a stale heartbeat, 2 = usage
-or I/O error.
+``--fail-on-drift`` / regression with ``--fail-on-regression`` / roofline
+worst kernel below ``--fail-below`` / tail without a run end / a stale
+heartbeat, 2 = usage or I/O error.
 """
 
 from __future__ import annotations
@@ -30,8 +34,10 @@ import json
 import sys
 
 from crimp_tpu_torch.obs import heartbeat as hbt
+from crimp_tpu_torch.obs import ledger as ldg
 from crimp_tpu_torch.obs import merge as mrg
 from crimp_tpu_torch.obs import report as rpt
+from crimp_tpu_torch.obs import roofline as rfl
 from crimp_tpu_torch.obs import salvage as slv
 from crimp_tpu_torch.obs.manifest import load_manifest, validate_manifest
 
@@ -61,6 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
     m = sub.add_parser("prom", help="export Prometheus text exposition")
     m.add_argument("manifest")
     m.add_argument("-o", "--out", default=None, help="output path (default stdout)")
+
+    r = sub.add_parser("roofline", help="per-kernel achieved FLOP/s, intensity and share of the "
+                                        "roofline from the manifest's cost-model rows")
+    r.add_argument("manifest")
+    r.add_argument("--format", choices=("text", "json"), default="text")
+    r.add_argument("--fail-below", type=float, default=None, metavar="PCT",
+                   help="exit 1 when the worst measured kernel sits below this percent of its roofline")
 
     v = sub.add_parser("validate", help="schema-check a manifest")
     v.add_argument("manifest")
@@ -98,7 +111,61 @@ def build_parser() -> argparse.ArgumentParser:
     hb.add_argument("--max-age-s", type=float, required=True,
                     help="maximum sidecar age in seconds to count as alive")
     hb.add_argument("--format", choices=("text", "json"), default="text")
+
+    lg = sub.add_parser("ledger", help="append-only performance ledger: classify records, baseline, gate")
+    lg.add_argument("action", choices=("add", "show", "check"))
+    lg.add_argument("paths", nargs="*",
+                    help="bench records (BENCH_r*.json), bench logs, or obs manifests to ingest")
+    lg.add_argument("--ledger", default=None, help="ledger JSONL path (default: $CRIMP_TORCH_OBS_LEDGER)")
+    lg.add_argument("--format", choices=("text", "json"), default="text")
+    lg.add_argument("--tolerance-pct", type=float, default=5.0, help="regression tolerance band per metric")
+    lg.add_argument("--fail-on-regression", action="store_true",
+                    help="exit 1 when the latest green entry regresses")
     return p
+
+
+def _ledger_entries(args) -> tuple[list[dict], str | None]:
+    """Entries for a ledger action: stored ledger rows + listed artifacts."""
+    path = args.ledger if args.ledger is not None else ldg.env_ledger_path()
+    entries = ldg.read(path) if path else []
+    for src in args.paths:
+        entries.extend(ldg.entries_from_path(src))
+    return entries, path
+
+
+def _cmd_ledger(args) -> int:
+    if args.action == "add":
+        path = args.ledger if args.ledger is not None else ldg.env_ledger_path()
+        if not path:
+            print("obs ledger add: no ledger path (--ledger or CRIMP_TORCH_OBS_LEDGER)", file=sys.stderr)
+            return 2
+        if not args.paths:
+            print("obs ledger add: nothing to ingest", file=sys.stderr)
+            return 2
+        entries = []
+        for src in args.paths:
+            entries.extend(ldg.entries_from_path(src))
+        ldg.append(path, entries)
+        print(f"appended {len(entries)} entrie(s) to {path}")
+        return 0
+    entries, _ = _ledger_entries(args)
+    if args.action == "show":
+        doc = {"entries": entries, "baseline": ldg.baseline(entries)}
+        if args.format == "json":
+            print(json.dumps(doc, indent=2))
+        else:
+            for e in entries:
+                rnd = f"r{e.get('round')}" if e.get("round") is not None else "r?"
+                print(f"{rnd:<4} {e.get('class', '?'):<13} {e.get('kind', '?'):<13} {e.get('source', '?')}")
+            for metric, b in sorted(doc["baseline"].items()):
+                print(f"baseline {metric:<24} {b['value']:<12g} {b['source']}")
+        return 0
+    report = ldg.check(entries, tolerance_pct=args.tolerance_pct)
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+    else:
+        print(ldg.render_check(report))
+    return 1 if (args.fail_on_regression and not report["ok"]) else 0
 
 
 def _write(text: str, out: str | None) -> None:
@@ -152,6 +219,25 @@ def main(argv: list[str] | None = None) -> int:
             _write(rpt.prometheus(doc), args.out)
             return 0
 
+        if args.cmd == "roofline":
+            doc = load_manifest(args.manifest)
+            analysis = rfl.analyze(doc)
+            if args.format == "json":
+                print(json.dumps(analysis, indent=2))
+            else:
+                print(rfl.render(analysis))
+            if args.fail_below is not None:
+                worst = analysis.get("worst_pct")
+                if worst is None:
+                    print("obs roofline: --fail-below set but no kernel had both a cost row and a "
+                          "measured span", file=sys.stderr)
+                    return 1
+                if worst < args.fail_below:
+                    print(f"obs roofline: worst kernel {worst:.2f}% of roof < --fail-below "
+                          f"{args.fail_below:g}%", file=sys.stderr)
+                    return 1
+            return 0
+
         if args.cmd == "merge":
             streams = mrg.resolve_streams(args.streams, run_id=args.run_id)
             out = mrg.merge_file(streams, args.out, force=args.force)
@@ -183,6 +269,9 @@ def main(argv: list[str] | None = None) -> int:
             else:
                 print(f"heartbeat-check: {reason}")
             return 0 if fresh else 1
+
+        if args.cmd == "ledger":
+            return _cmd_ledger(args)
     except (OSError, ValueError) as exc:
         print(f"obs: {exc}", file=sys.stderr)
         return 2

@@ -17,6 +17,15 @@ keep the JAX package's schema (``OBS_SCHEMA``), so one reporter reads both.
   duration covers the device work queued inside it. Disabled, nothing
   synchronizes. Telemetry never initializes the card: identity and memory
   statistics come only from a card some other code already brought up.
+- **Kernel spans in device time.** ``utils/profiling.timed`` brackets a
+  kernel call on the card with two CUDA events and hands them over with
+  :func:`record_device_span`; the span's duration is the events' elapsed
+  time, read lazily when the enclosing stage span closes (which
+  synchronizes anyway) or the run ends, so the kernel call itself gains no
+  synchronization.
+- **Cost rows.** :func:`record_cost` attaches one cost-model row per kernel
+  name (``obs/costmodel.py``) to the manifest's ``costmodel`` table, which
+  ``obs roofline`` joins against the kernel spans.
 """
 
 from __future__ import annotations
@@ -157,6 +166,7 @@ class Span:
     def __exit__(self, exc_type, exc, tb):
         if exc_type is None:
             _sync()
+            self._rec._resolve_device_spans()
         dur = time.perf_counter() - self._t0
         stack = _stack()
         if stack and stack[-1] == self.index:
@@ -208,6 +218,8 @@ class RunRecorder:
         self.numeric_mode: dict | None = None
         self.error: str | None = None
         self.degraded: list[str] = []
+        self.costmodel: dict[str, dict] = {}
+        self._device_spans: list[tuple[int, object, object]] = []  # (span index, start, end)
         self.spans: list[dict] = [{
             "name": self.name, "kind": "run", "t0_s": 0.0, "dur_s": None,
             "parent": None, "thread": 0, "attrs": dict(attrs),
@@ -265,6 +277,26 @@ class RunRecorder:
             except OSError:
                 self._note_write_error("events")
 
+    def _resolve_device_spans(self, wait: bool = False) -> None:
+        """Fill the durations of kernel spans timed by CUDA events whose end
+        event has completed (all of them with ``wait``, which synchronizes
+        the card first), and emit their span events."""
+        with _LOCK:
+            pending, self._device_spans = self._device_spans, []
+        if pending and wait and _card_live():
+            torch.cuda.synchronize()
+        later = []
+        for idx, start, end in pending:
+            if not end.query():
+                later.append((idx, start, end))
+                continue
+            row = self.spans[idx]
+            row["dur_s"] = round(start.elapsed_time(end) / 1e3, 6)
+            self._emit({"ev": "span", "i": idx, **row})
+        if later:
+            with _LOCK:
+                self._device_spans[:0] = later
+
     def manifest(self) -> dict:
         """The manifest document (the JAX package's schema)."""
         return {
@@ -282,7 +314,8 @@ class RunRecorder:
             "platform": _platform_identity(),
             "knobs": _knob_snapshot(),
             "numeric_mode": self.numeric_mode,
-            "compile": None,
+            "compile": _compile_snapshot(),
+            "costmodel": dict(self.costmodel),
             "counters": dict(self.counters),
             "gauges": dict(self.gauges),
             "spans": list(self.spans),
@@ -319,6 +352,7 @@ class RunRecorder:
                 if isinstance(start, (int, float)):
                     self.gauges["hbm_leak_bytes"] = end["bytes_in_use"] - start
             self._emit({"ev": "gauge", "k": "hbm_run_end_bytes", "v": end["bytes_in_use"]})
+        self._resolve_device_spans(wait=True)
         with _LOCK:
             if self.spans[0]["dur_s"] is None:
                 self.spans[0]["dur_s"] = round(time.perf_counter() - self.t0, 6)
@@ -369,6 +403,14 @@ def _platform_identity() -> dict:
                                "bytes_in_use": torch.cuda.memory_allocated(i),
                                "bytes_limit": props.total_memory})
     return out
+
+
+def _compile_snapshot() -> dict | None:
+    """What the port compiled so far (nvcc builds, CUDA-graph captures),
+    from ``utils/profiling.compile_counters``."""
+    from crimp_tpu_torch.utils import profiling
+
+    return profiling.compile_counters()
 
 
 def _hbm_stats() -> dict | None:
@@ -445,6 +487,41 @@ def record_span(name: str, dur_s: float, kind: str = "kernel", **attrs) -> None:
         idx = len(rec.spans)
         rec.spans.append(row)
     rec._emit({"ev": "span", "i": idx, **row})
+
+
+def record_device_span(name: str, start, end, kind: str = "kernel", **attrs) -> None:
+    """Record a span timed on the card by two recorded CUDA events; its
+    duration is filled in lazily (``RunRecorder._resolve_device_spans``),
+    never by synchronizing here. No-op when no run is active."""
+    rec = _RUN
+    if rec is None:
+        return
+    stack = _stack()
+    row = {
+        "name": str(name), "kind": str(kind),
+        "t0_s": round(time.perf_counter() - rec.t0, 6),
+        "dur_s": None,
+        "parent": stack[-1] if stack else 0,
+        "thread": rec._thread_ordinal(),
+        "attrs": dict(attrs),
+    }
+    with _LOCK:
+        idx = len(rec.spans)
+        rec.spans.append(row)
+        rec._device_spans.append((idx, start, end))
+
+
+def record_cost(name: str, row: dict) -> None:
+    """Attach one cost-model row to the active run (no-op when none).
+
+    Keyed by kernel name, the name its span carries, so the roofline join
+    is a dict lookup. Last capture wins."""
+    rec = _RUN
+    if rec is None:
+        return
+    with _LOCK:
+        rec.costmodel[str(name)] = dict(row)
+    rec._emit({"ev": "cost", "k": str(name), "row": dict(row)})
 
 
 def current_span_name(default: str | None = None) -> str | None:

@@ -1,0 +1,271 @@
+"""Cost-model capture: FLOPs and bytes per kernel call.
+
+Port of ``crimp_tpu/obs/costmodel.py``. The flight recorder knows how long
+a kernel ran; this module records how much work the call represents, so
+:mod:`crimp_tpu_torch.obs.roofline` can turn the kernel spans' device time
+into achieved FLOP/s, bytes/s and a share of the card's roofline. XLA's
+``cost_analysis`` has no torch counterpart, so the counts come from:
+
+- **the hand kernels' own formulas**, the ones ``PERF.md``'s bounds use:
+  K2 ``z2_grid.flops_per_pair`` per (trial, event) pair (:func:`k2_counts`),
+  K3 the f32 operations of ``z2_general.ops_per_pair`` (:func:`k3_counts`),
+  K4 B*E*(P + 2)*8 bytes (:func:`k4_counts`); bytes count each input read
+  once and each output written once;
+- **the tensors themselves** for ``argument_bytes`` and ``output_bytes``;
+- **``torch.utils.flop_counter.FlopCounterMode``** for torch code, by
+  running the function once on ``meta`` tensors (no data, no card work);
+  where that is not possible (or counts nothing: the counter sees matrix
+  products only) the FLOPs stay null and the row is partial, as JAX allows.
+
+Contracts, as in the JAX package:
+
+- **Disabled is free.** With no active obs run :func:`capture` returns
+  after one check; ``CRIMP_TORCH_OBS_COST=0`` disables capture while obs
+  stays on (malformed raises). :func:`kernel_span` is a no-op without a run.
+- **Repeat shapes cost nothing.** Rows are cached per fingerprint (kernel,
+  platform, argument shapes/dtypes/statics, numeric-mode knobs): in
+  process first, then under ``cost|`` keys of the autotune cache file.
+- **Never raises, never recomputes on the card.** Any failure degrades to
+  no row, counted in ``costmodel_capture_errors``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import hashlib
+import logging
+
+import numpy as np
+import torch
+
+from crimp_tpu_torch import knobs
+from crimp_tpu_torch.obs import core as obs_core
+
+logger = logging.getLogger("crimp_tpu_torch.obs.costmodel")
+
+_MEM_CACHE: dict[str, dict] = {}
+
+
+def cost_capture_on() -> bool:
+    """Whether CRIMP_TORCH_OBS_COST asks for capture (default on; malformed raises)."""
+    return knobs.env_onoff("CRIMP_TORCH_OBS_COST") is not False
+
+
+@contextlib.contextmanager
+def kernel_span(name: str):
+    """The kernel span of a capture site: ``utils/profiling.timed(name)``
+    (device time from CUDA events on the card) inside an active run, free
+    otherwise."""
+    if obs_core.active() is None:
+        yield
+        return
+    from crimp_tpu_torch.utils import profiling
+
+    with profiling.timed(name):
+        yield
+
+
+def _platform_peek() -> str:
+    """``backend|device kind`` of a card some other code brought up, else
+    ``cpu|cpu``; capture never initializes the card."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        return f"cuda|{torch.cuda.get_device_name(torch.cuda.current_device())}"
+    return "cpu|cpu"
+
+
+def _leaves(tree) -> list:
+    """Flatten tuples, lists, dicts, NamedTuples and dataclasses."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree, key=str) for leaf in ([k] + _leaves(tree[k]))]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [type(tree).__name__] + _leaves([getattr(tree, f.name) for f in dataclasses.fields(tree)])
+    return [tree]
+
+
+def _leaf_sig(leaf) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return f"{leaf.dtype}[{','.join(map(str, leaf.shape))}]@{leaf.device.type}"
+    if isinstance(leaf, np.ndarray):
+        return f"np.{leaf.dtype}[{','.join(map(str, leaf.shape))}]"
+    if isinstance(leaf, (bool, int, float, complex, str, bytes, type(None), torch.dtype)):
+        return repr(leaf)
+    return type(leaf).__name__
+
+
+def _numeric_knob_sig() -> str:
+    """Set numeric-mode knobs, so a mode flip never aliases a cached row."""
+    return ";".join(f"{name}={knobs.raw(name)}" for name in sorted(knobs.REGISTRY)
+                    if knobs.REGISTRY[name].numeric and knobs.raw(name))
+
+
+def fingerprint(name: str, args: tuple, kwargs: dict) -> str:
+    """``cost|<platform>|<device kind>|<kernel>|<sha>``: the disk-cache key."""
+    body = "|".join([_numeric_knob_sig()] + [_leaf_sig(leaf) for leaf in _leaves((args, kwargs))])
+    sha = hashlib.sha1(body.encode()).hexdigest()[:16]
+    return f"cost|{_platform_peek()}|{name}|{sha}"
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor and array leaf of ``tree``."""
+    total = 0
+    for leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+        elif isinstance(leaf, np.ndarray):
+            total += leaf.nbytes
+    return total
+
+
+def _to_meta(tree):
+    if isinstance(tree, torch.Tensor):
+        return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    if isinstance(tree, dict):
+        return {k: _to_meta(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_meta(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_meta(v) for v in tree)
+    return tree
+
+
+def meta_flops(fn, args: tuple, kwargs: dict) -> float | None:
+    """FLOPs ``FlopCounterMode`` counts for ``fn`` on ``meta`` copies of the
+    tensor arguments (matrix products only), or None when the function
+    cannot run on meta tensors or counts nothing."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        with FlopCounterMode(display=False) as counter:
+            fn(*_to_meta(args), **_to_meta(kwargs))
+        total = counter.get_total_flops()
+    except Exception:  # a data-dependent branch, a host copy: no count
+        return None
+    return float(total) if total > 0 else None
+
+
+def analyze(fn, args: tuple, kwargs: dict, counts=None, out=None) -> dict:
+    """The cost row of one call: FLOPs and bytes from ``counts`` (the hand
+    kernels' formulas) or a meta run of ``fn`` (torch code; None skips it),
+    argument and output bytes from the tensors."""
+    from crimp_tpu_torch.parallel import multihost
+
+    row: dict = {"flops": None, "bytes_accessed": None, "transcendentals": None,
+                 "argument_bytes": tensor_bytes((args, kwargs)),
+                 "output_bytes": tensor_bytes(out) if out is not None else None,
+                 "temp_bytes": None, "peak_bytes": None, "generated_code_bytes": None,
+                 "devices": 1, "sharded": False, "flops_source": None}
+    if counts is not None:
+        counts = counts() if callable(counts) else counts
+        for field in ("flops", "bytes_accessed", "transcendentals"):
+            if isinstance(counts.get(field), (int, float)):
+                row[field] = float(counts[field])
+        row["flops_source"] = "formula"
+    elif fn is not None:
+        row["flops"] = meta_flops(fn, args, kwargs)
+        row["flops_source"] = "flop_counter" if row["flops"] is not None else None
+    row["process_index"], row["process_count"] = multihost.process_identity()
+    return row
+
+
+def capture(name: str, fn, *args, counts=None, out=None, **kwargs) -> dict | None:
+    """Record the cost row of one kernel call under span name ``name``.
+
+    Call sites invoke this right after the call with the same arguments;
+    ``counts`` (keyword-only: a dict, or a callable returning one, of
+    ``flops``/``bytes_accessed``) gives a hand kernel's counts, ``out`` the
+    call's result (its bytes). Returns the row (also recorded on the active
+    run), or None: no active run, capture off, or a failure."""
+    if obs_core.active() is None or not cost_capture_on():
+        return None
+    try:
+        key = fingerprint(name, args, kwargs)
+        row = _MEM_CACHE.get(key)
+        cache = "mem"
+        if row is None:
+            row = _disk_get(key)
+            cache = "disk"
+        if row is None:
+            row = analyze(fn, args, kwargs, counts=counts, out=out)
+            cache = "miss"
+            _disk_put(key, row)
+        _MEM_CACHE[key] = row
+        out_row = dict(row)
+        out_row["fingerprint"] = key
+        out_row["cache"] = cache
+        span = obs_core.current_span_name()
+        if span:
+            out_row["span"] = span
+        obs_core.record_cost(name, out_row)
+        obs_core.counter_add("costmodel_rows")
+        return out_row
+    except Exception as exc:  # capture never fails the kernel that just ran
+        logger.debug("cost capture failed for %s: %s", name, exc)
+        obs_core.counter_add("costmodel_capture_errors")
+        return None
+
+
+# -- the hand kernels' counts ----------------------------------------------------
+
+
+def k2_counts(n_events: int, n_freq: int, n_rows: int, nharm: int, out, weights=None) -> dict:
+    """K2: ``flops_per_pair(nharm)`` f32 FLOPs per (trial, event) pair over
+    the grid's trials (frequencies x rows); bytes: the f64 event times (and
+    f32 weights), one f64 coefficient per row, the f32 sums written."""
+    from crimp_tpu_torch.ops import z2_grid
+
+    nbytes = 8 * n_events + 8 * n_rows + tensor_bytes(out)
+    if weights is not None:
+        nbytes += 4 * n_events
+    return {"flops": float(n_freq) * n_rows * n_events * z2_grid.flops_per_pair(nharm),
+            "bytes_accessed": float(nbytes)}
+
+
+def k3_counts(n_events: int, n_freq: int, n_rows: int, nharm: int, trig_dtype=torch.float32,
+              poly: bool = False, has_d: bool = False) -> dict:
+    """K3: the f32 operations of ``ops_per_pair`` per pair (all of them
+    with f64 trig), as in ``utils/k3_ab.shape_bounds``; bytes: events,
+    trials and the f64 sums."""
+    from crimp_tpu_torch.ops import z2_general
+
+    f64_ops, f32_ops = z2_general.ops_per_pair(nharm, trig_dtype, poly=poly, has_d=has_d)
+    ops = f32_ops if trig_dtype == torch.float32 else f64_ops
+    n_trials = n_freq * n_rows
+    return {"flops": float(n_trials) * n_events * ops,
+            "bytes_accessed": float(8 * n_events + 8 * n_freq + 8 * n_rows + 2 * nharm * n_trials * 8)}
+
+
+def k4_counts(n_rows: int, n_events: int, n_params: int) -> dict:
+    """K4: B*E*(P + 2)*8 bytes (phases and basis read, phases written) and
+    2*B*E*P f64 FLOPs (one FMA per basis element)."""
+    return {"flops": 2.0 * n_rows * n_events * n_params,
+            "bytes_accessed": 8.0 * n_rows * n_events * (n_params + 2)}
+
+
+# -- disk tier (the autotune cache file, "cost|" keys) -----------------------------
+
+
+def _disk_get(key: str) -> dict | None:
+    from crimp_tpu_torch.ops import autotune
+
+    entry = autotune._load_cache().get(key)
+    if not isinstance(entry, dict):
+        return None
+    return {k: v for k, v in entry.items() if k not in ("fingerprint", "cache", "span")}
+
+
+def _disk_put(key: str, row: dict) -> None:
+    from crimp_tpu_torch.ops import autotune
+
+    try:
+        autotune._store_entry(key, row)
+    except OSError:
+        # a read-only or full cache dir: the in-process cache still dedups
+        logger.debug("cost cache store failed for %s", key)
+
+
+def reset_mem_cache() -> None:
+    """Test hook: forget every in-process row."""
+    _MEM_CACHE.clear()

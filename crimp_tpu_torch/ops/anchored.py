@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from crimp_tpu_torch import obs
+from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
 from crimp_tpu_torch.utils.device import resolve_device
@@ -327,15 +328,16 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: in
 
     def exact():
         am = prepare_anchors(tm, t_ref).to(dev)
-        return anchored_fold(
-            am,
-            torch.as_tensor(delta, device=dev),
-            torch.as_tensor(anchor_idx, device=dev),
-        ).cpu().numpy()
+        delta_dev = torch.as_tensor(delta, device=dev)
+        idx_dev = torch.as_tensor(anchor_idx, device=dev)
+        with costmodel.kernel_span("anchored_fold"):
+            out = anchored_fold(am, delta_dev, idx_dev)
+        costmodel.capture("anchored_fold", None, am, delta_dev, idx_dev, out=out)
+        return out.cpu().numpy()
 
     from crimp_tpu_torch.ops import deltafold
 
-    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget)
+    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget, n_events=int(times_cat.size), device=dev)
     if delta_fold:
         folded, _ = deltafold.cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact,
                                           budget=budget, tag=cache_tag, fold_cache=fold_cache,

@@ -55,8 +55,10 @@ import torch
 
 from crimp_tpu_torch import knobs, obs, resilience
 from crimp_tpu_torch.models import timing
+from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
 from crimp_tpu_torch.resilience import faultinject
+from crimp_tpu_torch.utils import profiling
 from crimp_tpu_torch.utils.device import resolve_device
 from crimp_tpu_torch.utils.logging import get_logger
 
@@ -78,14 +80,18 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def resolve_delta_fold(delta_fold=None, budget=None) -> tuple[int, float]:
-    """(delta_fold, budget): explicit arguments, else CRIMP_TORCH_DELTA_FOLD
-    (strict 0/1) and CRIMP_TORCH_DELTA_FOLD_BUDGET (> 0), else off and
-    1e-9 cycles, the JAX package's defaults."""
-    if delta_fold is None:
-        delta_fold = knobs.env_nonneg_int("CRIMP_TORCH_DELTA_FOLD", valid=(0, 1)) or 0
-    if budget is None:
-        budget = knobs.env_pos_float("CRIMP_TORCH_DELTA_FOLD_BUDGET") or DEFAULT_BUDGET
+def resolve_delta_fold(delta_fold=None, budget=None, n_events: int = 1, device=None) -> tuple[int, float]:
+    """(delta_fold, budget): explicit arguments, else
+    ``autotune.resolve_delta_fold(n_events)``: CRIMP_TORCH_DELTA_FOLD
+    (strict 0/1) and CRIMP_TORCH_DELTA_FOLD_BUDGET (> 0), then a cached
+    A/B verdict of ``device``, then off and 1e-9 cycles, the JAX package's
+    defaults."""
+    if delta_fold is None or budget is None:
+        from crimp_tpu_torch.ops import autotune
+
+        cfg = autotune.resolve_delta_fold(n_events, device=device)
+        delta_fold = cfg["delta_fold"] if delta_fold is None else delta_fold
+        budget = cfg["budget"] if budget is None else budget
     return int(bool(delta_fold)), float(budget)
 
 
@@ -309,8 +315,10 @@ def _launch_refold(folded: torch.Tensor, basis: torch.Tensor, dp: torch.Tensor) 
     from crimp_tpu_torch.ops import z2_grid
 
     out = torch.empty_like(folded)
-    rc = lib.deltafold_refold(folded.data_ptr(), basis.data_ptr(), dp.data_ptr(), out.data_ptr(),
-                              n_batch, n_events, basis.shape[2], z2_grid.stream_of(folded))
+    stream = z2_grid.stream_of(folded)
+    with profiling.launch_window():
+        rc = lib.deltafold_refold(folded.data_ptr(), basis.data_ptr(), dp.data_ptr(), out.data_ptr(),
+                                  n_batch, n_events, basis.shape[2], stream)
     z2_grid.check_launch(rc, "deltafold_refold")
     LAUNCHES["refold"] += 1
     return out
@@ -580,7 +588,11 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
 
                 if prod.phases_dev is None:
                     prod.phases_dev = torch.as_tensor(prod.phases, device=dev)
-                out = refold(prod.phases_dev, basis.b, torch.as_tensor(dp, device=dev))
+                dp_dev = torch.as_tensor(dp, device=dev)
+                with costmodel.kernel_span("delta_refold"):
+                    out = refold(prod.phases_dev, basis.b, dp_dev)
+                costmodel.capture("delta_refold", refold, prod.phases_dev, basis.b, dp_dev, out=out,
+                                  counts=lambda: costmodel.k4_counts(1, basis.b.shape[0], basis.b.shape[1]))
                 folded = z2_grid.to_host(out, "deltafold_refold")
                 info["mode"] = "delta"
                 obs.counter_add("delta_fold_refolds")
@@ -700,7 +712,11 @@ def delta_refold_batch(tms, seg_times_lists, tags=None, budget: float = DEFAULT_
         dp_pad[r, :dp.size] = torch.as_tensor(dp, device=dev)
     from crimp_tpu_torch.ops import z2_grid
 
-    out = z2_grid.to_host(refold_batch(folded_pad, basis_pad, dp_pad), "deltafold_refold")
+    with costmodel.kernel_span("delta_refold_batch"):
+        out_dev = refold_batch(folded_pad, basis_pad, dp_pad)
+    costmodel.capture("delta_refold_batch", refold_batch, folded_pad, basis_pad, dp_pad, out=out_dev,
+                      counts=lambda: costmodel.k4_counts(*basis_pad.shape))
+    out = z2_grid.to_host(out_dev, "deltafold_refold")
     obs.counter_add("delta_fold_refolds", len(admitted))
     for r, (i, _, _, _, sizes, n_i) in enumerate(admitted):
         infos[i]["mode"] = "delta"

@@ -31,11 +31,13 @@ model is one ``basis @ theta`` product, masked for padded rows.
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from crimp_tpu_torch.utils import profiling
 from crimp_tpu_torch.utils.device import resolve_device
 
 # Steps per captured CUDA graph on the card: ~130 small kernels per step,
@@ -130,8 +132,10 @@ def _run_graphed(lp_fn, walkers, lp, per_step, chain, lps, block: int):
         _run_steps(lp_fn, state_w, state_lp, static_in, chain_blk, lps_blk)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
     with torch.cuda.graph(graph):
         out_w, out_lp = _run_steps(lp_fn, state_w, state_lp, static_in, chain_blk, lps_blk)
+    profiling.count_graph_capture(time.perf_counter() - t0)
     for i in range(n_blocks):
         rows = slice(i * block, (i + 1) * block)
         for dst, src in zip(static_in, per_step):

@@ -39,6 +39,7 @@ import torch
 
 from crimp_tpu_torch import obs
 from crimp_tpu_torch.models import timing
+from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.models.profiles import ProfileParams
 from crimp_tpu_torch.ops import anchored, autotune, search, toafit
 from crimp_tpu_torch.ops.anchored import AnchoredModel
@@ -257,7 +258,11 @@ def fold_sources(timing_models, seg_times_list, t_ref_list=None, device=None):
         for r, (_, delta, anchor_idx, _, _) in enumerate(part):
             delta_pad[r, : delta.size] = delta
             idx_pad[r, : anchor_idx.size] = anchor_idx
-        rows = stacked_fold(sm, torch.as_tensor(delta_pad, device=dev), torch.as_tensor(idx_pad, device=dev))
+        delta_dev = torch.as_tensor(delta_pad, device=dev)
+        idx_dev = torch.as_tensor(idx_pad, device=dev)
+        with costmodel.kernel_span("stacked_fold"):
+            rows = stacked_fold(sm, delta_dev, idx_dev)
+        costmodel.capture("stacked_fold", None, sm, delta_dev, idx_dev, out=rows)
         folded_rows.extend(rows.cpu().numpy())
     phase_lists, t_refs = [], []
     for (_, delta, _, sizes, t_ref), row in zip(prepped, folded_rows):
@@ -327,11 +332,13 @@ def fit_sources(kind, tpls, phase_lists, exposure_list, cfg, device=None):
         out = toafit.fit_toas_batch_auto(kind, tpls[0], phases, masks, exposures, cfg, device=device)
     else:
         obs.counter_add("toas_fit", len(rows))
-        cfg = toafit.resolve_runtime_cfg(cfg)
+        cfg = toafit.resolve_runtime_cfg(cfg, phases.shape[0], phases.shape[1], device=device)
         idx = torch.as_tensor(row_tpl_idx)
         tpl_rows = ProfileParams(**{f.name: torch.stack([getattr(t, f.name) for t in tpls])[idx]
                                     for f in dataclasses.fields(tpls[0])})
-        out = fit_toas_batch_multi(kind, tpl_rows, phases, masks, exposures, cfg, device=device)
+        with costmodel.kernel_span("toa_fit_batch_multi"):
+            out = fit_toas_batch_multi(kind, tpl_rows, phases, masks, exposures, cfg, device=device)
+        costmodel.capture("toa_fit_batch_multi", None, kind, tpl_rows, phases, masks, exposures, cfg)
         out = {k: v.cpu().numpy() for k, v in out.items()}
     return out, slices
 
@@ -459,8 +466,10 @@ def sample_posterior_sources(problems, steps: int, walkers: int, seed: int = 0, 
                 fed = mcmc_ops.Draws(*(torch.stack(d, dim=1) for d in zip(*parts)))
             else:
                 fed = mcmc_ops.Draws(*(d[:, sl].to(dev) for d in draws))
-            c_t, l_t = mcmc_ops.ensemble_sample_draws(mcmc_ops.delta_logprob, t(p0[sl]), fed, stretch_a,
-                                                      data=data, graph_steps=graph_steps)
+            with costmodel.kernel_span("mcmc_ensemble_sources"):
+                c_t, l_t = mcmc_ops.ensemble_sample_draws(mcmc_ops.delta_logprob, t(p0[sl]), fed, stretch_a,
+                                                          data=data, graph_steps=graph_steps)
+            costmodel.capture("mcmc_ensemble_sources", None, p0[sl], data, steps, out=c_t)
             chains[sl] = c_t.movedim(0, 1).cpu().numpy()
             lps[sl] = l_t.movedim(0, 1).cpu().numpy()
     return chains, lps

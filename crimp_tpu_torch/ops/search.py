@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from crimp_tpu_torch import knobs, obs, resilience
-from crimp_tpu_torch.ops import fasttrig, reduce, z2_general, z2_grid
+from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.ops import autotune, fasttrig, reduce, z2_general, z2_grid
 from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils.device import resolve_device
 
@@ -99,14 +100,21 @@ def stream_min_events(threshold=_FROM_ENV) -> int | None:
     return value
 
 
-def resolve_grid_mxu(mxu: bool | None = None, reseed: int | None = None,
-                     mxu_bf16: bool | None = None) -> tuple[bool, int, bool]:
+def resolve_grid_mxu(mxu: bool | None = None, reseed: int | None = None, mxu_bf16: bool | None = None,
+                     n_events: int = 1, n_trials: int = 1, poly: bool = True,
+                     cube: bool = False, device=None) -> tuple[bool, int, bool]:
     """(use_mxu, reseed, mxu_bf16) for the grid wrappers: explicit arguments
-    win; ``mxu`` None reads CRIMP_TORCH_GRID_MXU (strict 0/1; unset = off),
-    ``reseed`` None is GRID_MXU_RESEED, ``mxu_bf16`` None is off."""
-    if mxu is None:
-        mxu = bool(knobs.env_nonneg_int("CRIMP_TORCH_GRID_MXU", valid=(0, 1)) or 0)
-    return bool(mxu), GRID_MXU_RESEED if reseed is None else int(reseed), bool(mxu_bf16)
+    are hard overrides; anything left None resolves through
+    ``autotune.resolve_grid_mxu`` (``resolve_grid3d_mxu`` for the ``cube``):
+    CRIMP_TORCH_GRID_MXU / CRIMP_TORCH_MXU_BF16 > a cached A/B verdict for
+    (n_events, n_trials, poly) on ``device`` > off, reseed GRID_MXU_RESEED."""
+    if mxu is not None and reseed is not None and mxu_bf16 is not None:
+        return bool(mxu), int(reseed), bool(mxu_bf16)
+    r = (autotune.resolve_grid3d_mxu if cube else autotune.resolve_grid_mxu)(n_events, n_trials, poly=poly,
+                                                                             device=device)
+    return (bool(r["grid_mxu"]) if mxu is None else bool(mxu),
+            int(r["reseed"]) if reseed is None else int(reseed),
+            bool(r["mxu_bf16"]) if mxu_bf16 is None else bool(mxu_bf16))
 
 
 def chebyshev_weighted_sums(cos1, sin1, weights, nharm: int):
@@ -223,25 +231,44 @@ def _tiles_to_freqs(cs: torch.Tensor, n_freq: int) -> torch.Tensor:
 
 
 def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int, poly: bool,
-                  weights=None, per_split: int | None = None) -> torch.Tensor:
+                  weights=None, per_split: int | None = None, tile0: int = 0,
+                  site: str = "grid_sums", plan: str = "grid") -> torch.Tensor:
     """(2, n_fddot, n_fdot, nharm, n_freq) f64 sums through K2; ``fddots``
-    None runs the 2-D instantiation (one fddot row of the output)."""
+    None runs the 2-D instantiation (one fddot row of the output). The
+    launch plan (``per_split``) resolves through ``autotune.resolve_blocks``
+    under the family ``plan`` when not given; ``tile0`` offsets the grid by
+    whole trial tiles. The launch is the kernel span and cost row ``site``."""
     half, sixth = _row_coeffs(fdots, fddots, t.device)
+    n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
     n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
-    cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth,
-                              weights=_weights(weights, t.device), poly=poly,
-                              per_split=per_split)
+    if per_split is None:
+        per_split, _ = autotune.resolve_blocks(plan, t.shape[0], int(n_freq) * n_rows, poly,
+                                               n_rows=n_rows, nharm=nharm, device=t.device)
+    w = _weights(weights, t.device)
+    with costmodel.kernel_span(site):
+        cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, weights=w,
+                                  poly=poly, per_split=per_split, tile0=tile0)
+    costmodel.capture(site, z2_grid.z2_tile_sums, t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth,
+                      weights=w, poly=poly, per_split=per_split, tile0=tile0, out=cs,
+                      counts=lambda: costmodel.k2_counts(t.shape[0], int(n_freq), n_rows, nharm, cs, weights=w))
     return _tiles_to_freqs(cs, n_freq)
 
 
 def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
                           poly: bool = True, mxu: bool | None = None, reseed: int | None = None,
                           mxu_bf16: bool | None = None, weights=None,
-                          per_split: int | None = None, device=None, ladder: bool = True):
+                          per_split: int | None = None, tile0: int = 0, device=None,
+                          ladder: bool = True, plan: str | None = None, mxu_blocks=None):
     """(c, s, n_events) for the uniform-grid wrappers, c and s of shape
     (n_fddot, n_fdot, nharm, n_freq) f64 (n_fddot = 1 when ``fddots`` is
     None: the 2-D K2 instantiation). ``mxu`` picks the factorized matmul
-    path (explicit > CRIMP_TORCH_GRID_MXU > off; ``resolve_grid_mxu``).
+    path (explicit > CRIMP_TORCH_GRID_MXU > a cached verdict > off;
+    ``resolve_grid_mxu``). ``per_split`` pins K2's launch plan (None:
+    ``autotune.resolve_blocks`` under ``plan``, by default "grid3d" for a
+    cube and "grid" otherwise); ``tile0`` computes the trial tiles
+    [tile0, tile0 + ceil(n_freq / tile)) of the grid that starts at ``f0``,
+    the same bits as those tiles of one call over the whole grid;
+    ``mxu_blocks`` pins the factorized path's (event_block, trial_block).
 
     With ``ladder`` (the 1-D and cube wrappers, as in the JAX package; its
     2-D wrappers have none) this is the grid resilience ladder: a failed
@@ -252,8 +279,11 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
     t = _f64(times, resolve_device(device))
-    use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16)
     n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
+    cube = fddots is not None
+    use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16, t.shape[0],
+                                        int(n_freq) * (n_rows if cube else 1), poly, cube, device=t.device)
+    site = "grid_sums_3d" if cube else ("grid_sums" if ladder else "grid_sums_2d")
     obs.counter_add("grid_trials", int(n_freq) * n_rows)
     if use_mxu:
         try:
@@ -261,7 +291,13 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
                 faultinject.fire("harmonic_sums")
             # one exact-sincos reseed row per `rs` trials per grid row
             obs.counter_add("grid_mxu_reseeds", -(-int(n_freq) // max(1, rs)) * n_rows)
-            c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, rs, b16)
+            eb, tb = mxu_blocks or autotune.resolve_blocks("grid_mxu", t.shape[0], int(n_freq) * n_rows, poly,
+                                                           device=t.device)
+            with costmodel.kernel_span(site + "_mxu"):
+                c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, rs, b16,
+                                      eb, tb, tile0)
+            costmodel.capture(site + "_mxu", _mxu_grid_sums, t, weights, f0, df, n_freq, fdots, fddots,
+                              nharm, poly, rs, b16, eb, tb, tile0, out=(c, s))
             return c, s, t.shape[0]
         except resilience.KernelError:
             raise
@@ -273,7 +309,8 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
                 try:
                     resilience.record_degradation("grid", "streamed", kind)
                     c, s = _streamed_uniform_sums(t, f0, df, n_freq, nharm, poly=poly,
-                                                  fdots=fdots, fddots=fddots, device=t.device)
+                                                  fdots=fdots, fddots=fddots, tile0=tile0,
+                                                  device=t.device)
                     return c, s, t.shape[0]
                 except resilience.KernelError:
                     raise
@@ -286,7 +323,8 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
     if nharm > z2_grid.MAX_NHARM:
         raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}; "
                          "use the general kernels (z2_power, h_power, ...) beyond that")
-    cs = _k2_grid_sums(t, f0, df, n_freq, fdots, fddots, nharm, poly, weights, per_split)
+    cs = _k2_grid_sums(t, f0, df, n_freq, fdots, fddots, nharm, poly, weights, per_split, tile0,
+                       site, plan or ("grid3d" if cube else "grid"))
     return cs[0], cs[1], t.shape[0]
 
 
@@ -466,13 +504,13 @@ class _MxuCarry:
 
     def __init__(self, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int, poly: bool,
                  reseed: int, mxu_bf16: bool, device, event_block: int = MXU_EVENT_BLOCK,
-                 trial_block: int = MXU_TRIAL_BLOCK):
+                 trial_block: int = MXU_TRIAL_BLOCK, tile0: int = 0):
         self.df, self.n_freq, self.nharm, self.poly = float(df), int(n_freq), int(nharm), bool(poly)
         self.reseed, self.mxu_bf16 = int(reseed), bool(mxu_bf16)
         self.event_block, self.trial_block = int(event_block), int(trial_block)
         self.n_tiles = -(-self.n_freq // self.trial_block)
         # f0 + (tile*TB)*df: the association of the JAX factorized kernels
-        self.f_tiles = f0 + (torch.arange(self.n_tiles, dtype=torch.float64, device=device)
+        self.f_tiles = f0 + ((torch.arange(self.n_tiles, dtype=torch.float64, device=device) + tile0)
                              * self.trial_block) * df
         self.half, self.sixth = _row_coeffs(fdots, fddots, device)
         self.shape = (1 if fddots is None else self.sixth.shape[0], self.half.shape[0])
@@ -500,9 +538,9 @@ class _MxuCarry:
 
 
 def _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16,
-                   event_block: int = MXU_EVENT_BLOCK, trial_block: int = MXU_TRIAL_BLOCK):
+                   event_block: int = MXU_EVENT_BLOCK, trial_block: int = MXU_TRIAL_BLOCK, tile0: int = 0):
     carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, t.device,
-                      event_block, trial_block)
+                      event_block, trial_block, tile0)
     carry.feed(t, _weights(weights, t.device))
     return carry.result()
 
@@ -586,7 +624,8 @@ def _device_chunks(times: np.ndarray, plan, dev: torch.device):
 def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
                            poly: bool = True, fdots=(0.0,), fddots=None,
                            event_chunk: int | None = None, mxu: bool = False,
-                           reseed: int = GRID_MXU_RESEED, mxu_bf16: bool = False, device=None):
+                           reseed: int = GRID_MXU_RESEED, mxu_bf16: bool = False, tile0: int = 0,
+                           device=None):
     """Double-buffered driver of the streamed grid wrappers: (c, s) of shape
     (n_fddot, n_fdot, nharm, n_freq) f64, bitwise the monolithic result at
     the same split length. Exact path: each chunk is one K2 split and the
@@ -603,19 +642,25 @@ def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
     chunk = max(unit, chunk // unit * unit)
     plan = _stream_chunks(host.shape[0], chunk)
     if mxu:
-        carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, dev)
-        for t in _device_chunks(host, plan, dev):
-            carry.feed(t, None)
+        carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, dev, tile0=tile0)
+        with costmodel.kernel_span("grid_sums_streamed"):
+            for t in _device_chunks(host, plan, dev):
+                carry.feed(t, None)
         return carry.result()
     if nharm > z2_grid.MAX_NHARM:
         raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}")
     half, sixth = _row_coeffs(fdots, fddots, dev)
     n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
     acc = None
-    for t in _device_chunks(host, plan, dev):
-        cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, poly=poly,
-                                  per_split=chunk)
-        acc = cs if acc is None else acc + cs
+    n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
+    with costmodel.kernel_span("grid_sums_streamed"):
+        for t in _device_chunks(host, plan, dev):
+            cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, poly=poly,
+                                      per_split=chunk, tile0=tile0)
+            acc = cs if acc is None else acc + cs
+    costmodel.capture("grid_sums_streamed", z2_grid.z2_tile_sums, host, f0, df, half, n_tiles, nharm,
+                      sixth_fddots=sixth, poly=poly, per_split=chunk, tile0=tile0, out=acc,
+                      counts=lambda: costmodel.k2_counts(host.shape[0], int(n_freq), n_rows, nharm, acc))
     cs = _tiles_to_freqs(acc, n_freq)
     return cs[0], cs[1]
 
@@ -656,51 +701,65 @@ def z2_power_3d_grid_streamed(times, f0: float, df: float, n_freq: int, fdots, f
 
 def general_harmonic_sums(times, freqs, fdots=(0.0,), fddots=(0.0,), nharm: int = 2,
                           trig_dtype: torch.dtype = torch.float32, poly: bool = False,
-                          device=None):
+                          device=None, per_split: int | None = None):
     """(c, s) of shape (n_fddot, n_fdot, nharm, n_freq) f64 for arbitrary
-    frequencies through K3; ``fdots``/``fddots`` signed Hz/s and Hz/s^2."""
+    frequencies through K3; ``fdots``/``fddots`` signed Hz/s and Hz/s^2.
+    ``per_split`` pins K3's launch plan (None: ``autotune.resolve_blocks``
+    under "general"); each trial's sums depend on it and on nothing else of
+    the grid. The launch is the kernel span and cost row "general_sums"."""
     dev = resolve_device(device)
     half, sixth = _row_coeffs(fdots, fddots, dev)
-    cs = z2_general.general_sums(_f64(times, dev), _f64(freqs, dev), half, sixth, int(nharm),
-                                 trig_dtype, poly)
+    t, f = _f64(times, dev), _f64(freqs, dev)
+    n_rows = half.shape[0] * sixth.shape[0]
+    if per_split is None:
+        per_split, _ = autotune.resolve_blocks("general", t.shape[0], f.shape[0] * n_rows, poly,
+                                               n_rows=n_rows, nharm=int(nharm), trig_dtype=trig_dtype,
+                                               device=dev)
+    with costmodel.kernel_span("general_sums"):
+        cs = z2_general.general_sums(t, f, half, sixth, int(nharm), trig_dtype, poly, per_split=per_split)
+    costmodel.capture("general_sums", z2_general.general_sums, t, f, half, sixth, int(nharm), trig_dtype,
+                      poly, per_split=per_split, out=cs,
+                      counts=lambda: costmodel.k3_counts(t.shape[0], f.shape[0], n_rows, int(nharm), trig_dtype,
+                                                         poly, has_d=bool(np.any(np.asarray(fdots) != 0)
+                                                                          or np.any(np.asarray(fddots) != 0))))
     return cs[0], cs[1]
 
 
 def harmonic_sums_1d(times, freqs, nharm: int, trig_dtype: torch.dtype = torch.float32,
-                     poly: bool = False, device=None):
+                     poly: bool = False, device=None, per_split: int | None = None):
     """Trig sums (nharm, n_freq) f64 over all events at arbitrary frequencies."""
     c, s = general_harmonic_sums(times, freqs, nharm=nharm, trig_dtype=trig_dtype, poly=poly,
-                                 device=device)
+                                 device=device, per_split=per_split)
     return c[0, 0], s[0, 0]
 
 
 def z2_power(times, freqs, nharm: int = 2, trig_dtype: torch.dtype = torch.float32,
-             poly: bool = False, device=None) -> torch.Tensor:
+             poly: bool = False, device=None, per_split: int | None = None) -> torch.Tensor:
     """Z^2_n at each frequency (times pre-centered by the caller) -> (n_freq,)."""
-    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device)
+    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device, per_split)
     return torch.sum(z2_from_sums(c, s, np.shape(times)[0]), dim=0)
 
 
 def h_power(times, freqs, nharm: int = 20, trig_dtype: torch.dtype = torch.float32,
-            poly: bool = False, device=None) -> torch.Tensor:
+            poly: bool = False, device=None, per_split: int | None = None) -> torch.Tensor:
     """H-test at each frequency: max_m (cumsum Z^2_m - 4(m-1)) -> (n_freq,)."""
-    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device)
+    c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device, per_split)
     return _h_from_sums(c, s, np.shape(times)[0], dim=0)
 
 
 def z2_power_2d(times, freqs, fdots, nharm: int = 2, trig_dtype: torch.dtype = torch.float32,
-                poly: bool = False, device=None) -> torch.Tensor:
+                poly: bool = False, device=None, per_split: int | None = None) -> torch.Tensor:
     """Z^2_n over the (fdot, freq) grid -> (n_fdot, n_freq); signed fdots."""
-    c, s = general_harmonic_sums(times, freqs, fdots, (0.0,), nharm, trig_dtype, poly, device)
+    c, s = general_harmonic_sums(times, freqs, fdots, (0.0,), nharm, trig_dtype, poly, device, per_split)
     return torch.sum(z2_from_sums(c[0], s[0], np.shape(times)[0]), dim=1)
 
 
 def z2_power_3d(times, freqs, fdots, fddots, nharm: int = 2,
                 trig_dtype: torch.dtype = torch.float32, poly: bool = False,
-                device=None) -> torch.Tensor:
+                device=None, per_split: int | None = None) -> torch.Tensor:
     """Z^2_n over the (fddot, fdot, freq) cube -> (n_fddot, n_fdot, n_freq);
     the arbitrary-grid fallback of the jerk search, both axes signed."""
-    c, s = general_harmonic_sums(times, freqs, fdots, fddots, nharm, trig_dtype, poly, device)
+    c, s = general_harmonic_sums(times, freqs, fdots, fddots, nharm, trig_dtype, poly, device, per_split)
     return torch.sum(z2_from_sums(c, s, np.shape(times)[0]), dim=2)
 
 

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from crimp_tpu_torch.ops import search
+from crimp_tpu_torch.ops import autotune, search
 from crimp_tpu_torch.utils.device import resolve_device
 
 
@@ -66,22 +66,29 @@ def split_segments(times, n_segments: int):
 def stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nharm: int = 2,
                       poly: bool = True, mxu: bool = False,
                       reseed: int = search.GRID_MXU_RESEED, mxu_bf16: bool = False,
-                      device=None):
+                      device=None, per_split: int | None = None, tile0: int = 0):
     """Per-segment cube trig sums at the global phase model.
 
     Returns (c, s, counts): c/s (S, n_fddot, n_fdot, nharm, n_freq) f64
     tensors, counts the (S,) valid-event totals (numpy). Each segment goes
     through the grid dispatch (K2, or the factorized path with ``mxu``) with
-    its pad mask as the event weights.
+    its pad mask as the event weights, under one launch plan (``per_split``;
+    None resolves it once, ``autotune.resolve_blocks("semicoherent")``);
+    ``tile0`` as in ``search._grid3d_sums_dispatch``.
     """
     seg_times = np.asarray(seg_times, dtype=np.float64)
     seg_weights = np.asarray(seg_weights, dtype=np.float64)
     counts = seg_weights.sum(axis=1)
+    if per_split is None and not mxu:
+        n_rows = np.size(fdots) * np.size(fddots)
+        per_split, _ = autotune.resolve_blocks("semicoherent", seg_times.shape[1], int(n_freq) * n_rows, poly,
+                                               n_rows=n_rows, nharm=nharm, device=resolve_device(device))
     c_rows, s_rows = [], []
     for i in range(seg_times.shape[0]):
         c, s, _ = search._grid3d_sums_dispatch(
             seg_times[i], f0, df, n_freq, fdots, fddots, nharm, poly=poly, mxu=mxu,
-            reseed=reseed, mxu_bf16=mxu_bf16, weights=seg_weights[i], device=device)
+            reseed=reseed, mxu_bf16=mxu_bf16, weights=seg_weights[i], per_split=per_split,
+            tile0=tile0, device=device)
         c_rows.append(c)
         s_rows.append(s)
     return torch.stack(c_rows), torch.stack(s_rows), counts
@@ -90,7 +97,8 @@ def stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nha
 def semicoherent_z2_grid(times, f0, df, n_freq, fdots, fddots, nharm: int = 2,
                          n_segments: int = 8, stack: str = "incoherent", poly: bool = True,
                          mxu: bool = False, reseed: int = search.GRID_MXU_RESEED,
-                         mxu_bf16: bool = False, mesh=None, device=None) -> torch.Tensor:
+                         mxu_bf16: bool = False, mesh=None, device=None, per_split: int | None = None,
+                         tile0: int = 0) -> torch.Tensor:
     """Stacked Z^2 over the uniform (fddot, fdot, freq) cube
     -> (n_fddot, n_fdot, n_freq) f64.
 
@@ -107,7 +115,7 @@ def semicoherent_z2_grid(times, f0, df, n_freq, fdots, fddots, nharm: int = 2,
                                   "which is not ported yet")
     seg_times, seg_weights = split_segments(times, n_segments)
     c, s, counts = stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nharm,
-                                     poly, mxu, reseed, mxu_bf16, device)
+                                     poly, mxu, reseed, mxu_bf16, device, per_split, tile0)
     if stack == "coherent":
         return torch.sum(search.z2_from_sums(torch.sum(c, dim=0), torch.sum(s, dim=0),
                                              float(counts.sum())), dim=2)

@@ -23,9 +23,14 @@ first step k* whose LL drop exceeds chi2_1(0.6827)/2; reported bound =
 
 The readvaryparam general path (``cfg.free_idx``) refits every flagged
 template parameter per phase by a fixed-iteration bounded Nelder-Mead,
-batched over (segment, phase). Not ported in this slice: bf16 sweeps
-(the JAX ``mxu_bf16`` knob) and the mesh/autotune parts of
-``fit_toas_batch_auto``.
+batched over (segment, phase).
+
+``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two matrix products
+on bf16-rounded operands with f32 accumulation (a plain ``torch.matmul``,
+as JAX leaves it to XLA outside any kernel); off by default. The host
+wrappers fill the auto (-1) knobs through ``autotune.resolve_toafit``
+(``resolve_runtime_cfg``). The mesh part of the JAX ``fit_toas_batch_auto``
+waits for the port's parallel layer.
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from crimp_tpu_torch import knobs, obs
+from crimp_tpu_torch import obs
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES, ProfileParams
 from crimp_tpu_torch.models.profiles import extended_loglik
+from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
 from crimp_tpu_torch.ops import reduce
 from crimp_tpu_torch.utils.device import resolve_device
@@ -79,6 +85,11 @@ class ToAFitConfig(NamedTuple):
     n_free: int = -1  # chi2 dof override (-1 = auto: 2 + vary_amps)
     fix_norm: bool = False  # pin the norm at the template value
     err_dense_window: int = -1  # -1 = DENSE_WINDOW_DEFAULT; 0 = loop only
+    # bf16 profile sweeps, tri-state: -1 = auto (off unless the host
+    # wrappers resolve CRIMP_TORCH_MXU_BF16 or a cached verdict), 0 = exact
+    # f64 products, 1 = bf16 operands with f32 accumulation (Fourier
+    # sweep only; the binned-chi2 report stays exact)
+    mxu_bf16: int = -1
 
 
 def _phase_range(kind: str) -> float:
@@ -99,15 +110,34 @@ def _fourier_event_coeffs(tpl: ProfileParams, x: torch.Tensor):
     return amp * torch.cos(theta), amp * torch.sin(theta)
 
 
-def shape_at_shifts(kind: str, tpl: ProfileParams, x: torch.Tensor, phis: torch.Tensor) -> torch.Tensor:
+def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b on bf16-rounded operands with an f32 result: a product of two
+    bf16 values is exact in f32, so an f32 matrix product at full precision
+    (TF32 pinned off for the call) is the f32-accumulated bf16 product."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return a.to(torch.bfloat16).to(torch.float32) @ b.to(torch.bfloat16).to(torch.float32)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def shape_at_shifts(kind: str, tpl: ProfileParams, x: torch.Tensor, phis: torch.Tensor,
+                    bf16: bool = False) -> torch.Tensor:
     """s(x_i; phi) for all (phi, event) pairs: x (..., N), phis (..., P)
     -> (..., P, N), leading dims broadcast (the template may carry them
-    too: one refit template per segment in readvaryparam mode)."""
+    too: one refit template per segment in readvaryparam mode). ``bf16``
+    (Fourier only) runs the (P, K) x (K, N) products on bf16 operands with
+    f32 accumulation; the trig factors and per-event coefficients are exact,
+    so the only rounding is the K-term contraction."""
     if kind == FOURIER:
         C, S = _fourier_event_coeffs(tpl, x)  # (..., N, K)
         j = torch.arange(1, tpl.n_comp + 1, dtype=x.dtype, device=x.device)
         cosj = torch.cos(j * phis[..., None])  # (..., P, K)
         sinj = torch.sin(j * phis[..., None])
+        if bf16:
+            return (_bf16_matmul(cosj, C.transpose(-1, -2))
+                    + _bf16_matmul(sinj, S.transpose(-1, -2))).to(x.dtype)
         return cosj @ C.transpose(-1, -2) + sinj @ S.transpose(-1, -2)
 
     total = None
@@ -238,7 +268,7 @@ def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, w
         ll, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
         return ll, vecs[..., 0], vecs[..., 1 + 3 * tpl.n_comp]
     n_events = torch.sum(mask, dim=-1).to(x.dtype)
-    s = shape_at_shifts(kind, tpl, x, phis)
+    s = shape_at_shifts(kind, tpl, x, phis, bf16=cfg.mxu_bf16 == 1)
     if cfg.vary_amps:
         a, b = _optimal_norm_amp(kind, tpl, s, mask, exposure, n_events, cfg)
     elif cfg.fix_norm:
@@ -616,14 +646,23 @@ def fit_toas_batch(kind: str, tpl: ProfileParams, phases, masks, exposures,
         return fit_segment(kind, tpl.to(dev), x, mask, exposure, cfg)
 
 
-def resolve_runtime_cfg(cfg: ToAFitConfig) -> ToAFitConfig:
-    """Fill the auto (-1) dense window: CRIMP_TORCH_TOA_DENSE_WINDOW, else
-    its static default (the port has no autotune cache yet). Any window
-    gives the same bits."""
+def resolve_runtime_cfg(cfg: ToAFitConfig, n_segments: int = 1, n_events: int = 1, device=None) -> ToAFitConfig:
+    """Fill the cfg's auto (-1) knobs, dense window and bf16 sweep, through
+    ``autotune.resolve_toafit(n_segments, n_events)``: the environment, then
+    a cached verdict of ``device``, then the static defaults (window 32,
+    bf16 off).
+    Explicit (>= 0) values win. Any window gives the same bits."""
+    if cfg.err_dense_window >= 0 and cfg.mxu_bf16 >= 0:
+        return cfg
+    from crimp_tpu_torch.ops import autotune
+
+    resolved = autotune.resolve_toafit(n_segments, n_events, device=device)
+    upd = {}
     if cfg.err_dense_window < 0:
-        env = knobs.env_nonneg_int("CRIMP_TORCH_TOA_DENSE_WINDOW")
-        return cfg._replace(err_dense_window=DENSE_WINDOW_DEFAULT if env is None else env)
-    return cfg
+        upd["err_dense_window"] = int(resolved["err_dense_window"])
+    if cfg.mxu_bf16 < 0:
+        upd["mxu_bf16"] = int(resolved["mxu_bf16"])
+    return cfg._replace(**upd)
 
 
 def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
@@ -633,9 +672,11 @@ def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
     if phases.shape[0] == 0:
         return {}
     obs.counter_add("toas_fit", phases.shape[0])
-    out = fit_toas_batch(kind, tpl, phases, np.asarray(masks, dtype=bool),
-                         np.asarray(exposures, dtype=float), resolve_runtime_cfg(cfg),
-                         device=device)
+    masks, exposures = np.asarray(masks, dtype=bool), np.asarray(exposures, dtype=float)
+    cfg = resolve_runtime_cfg(cfg, phases.shape[0], phases.shape[1], device=device)
+    with costmodel.kernel_span("toa_fit_batch"):
+        out = fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=device)
+    costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

@@ -17,7 +17,8 @@ Counterpart of ``crimp_tpu/ops/pallas_z2.py``. Two kernels live in
 
 ``build()`` compiles every source of ``csrc/`` (this one, K3's
 ``z2_general.cu`` and K4's ``deltafold.cu``), one ``nvcc`` per source, all
-started together.
+started together, into ``build_dir()`` (``build/kernels/`` unless
+CRIMP_TORCH_COMPILE_CACHE says otherwise).
 
 Each wrapper takes a CPU tensor to its plain twin (``probe_reference``,
 ``z2_tile_sums_reference``: the same math in torch ops). A CUDA tensor
@@ -47,6 +48,7 @@ import torch
 
 from crimp_tpu_torch.ops import fasttrig, search
 from crimp_tpu_torch.resilience.taxonomy import KernelError
+from crimp_tpu_torch.utils import profiling
 
 TRIAL_TILE = 256  # trials per tile = threads per block of K2
 EVENT_CHUNK = 1024  # events staged per shared-memory chunk (and twin chunk)
@@ -57,7 +59,6 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu",
            "deltafold": CSRC / "deltafold.cu"}
 SOURCE = SOURCES["z2_grid"]
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -66,7 +67,8 @@ LAUNCHES = {"probe": 0, "z2_tile_sums": 0}
 _LIB = None
 _LIB_LOCK = threading.Lock()
 # per source: path, seconds, cached, log; "seconds" is the wall time of the
-# whole (parallel) build
+# last (parallel) build, "built" / "reused" count the libraries compiled and
+# found in the build directory over the process
 BUILD_INFO: dict = {}
 
 
@@ -90,21 +92,42 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the Z^2 kernels need the CUDA toolkit")
 
 
+_TMP_BUILD_DIR: pathlib.Path | None = None
+
+
+def build_dir() -> pathlib.Path:
+    """Where ``build()`` puts the libraries: ``utils/platform``'s build
+    directory (CRIMP_TORCH_COMPILE_CACHE, default ``build/kernels/``), or a
+    per-process temporary directory when that is disabled."""
+    global _TMP_BUILD_DIR
+    from crimp_tpu_torch.utils import platform
+
+    target = platform.configure_compilation_cache()
+    if target is not None:
+        return target
+    if _TMP_BUILD_DIR is None:
+        import tempfile
+
+        _TMP_BUILD_DIR = pathlib.Path(tempfile.mkdtemp(prefix="crimp_tpu_torch_kernels_"))
+    return _TMP_BUILD_DIR
+
+
 def build(force: bool = False) -> dict:
-    """Compile every ``csrc/*.cu`` into ``build/kernels/`` (each keyed by its
+    """Compile every ``csrc/*.cu`` into ``build_dir()`` (each keyed by its
     source and flags' hash), one ``nvcc`` process per source, all started
     together. Records each compiler's ``-Xptxas -v`` report and time in
     ``BUILD_INFO``; returns {name: library path}."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
     paths, running = {}, {}
     t0 = time.perf_counter()
     for name, src_path in SOURCES.items():
         src = src_path.read_bytes()
         key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}_{key}.so"
+        out = out_dir / f"lib{name}_{key}.so"
         paths[name] = out
         if out.exists() and not force:
             BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, log="")
+            BUILD_INFO["reused"] = BUILD_INFO.get("reused", 0) + 1
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
@@ -119,6 +142,7 @@ def build(force: bool = False) -> dict:
             continue
         os.replace(tmp, out)
         BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, log=log.strip())
+        BUILD_INFO["built"] = BUILD_INFO.get("built", 0) + 1
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     if failed:
         raise KernelError("\n".join(failed))
@@ -162,7 +186,7 @@ def _lib():
             lib.z2_empty.argtypes = [vp]
             lib.z2_empty.restype = ci
             lib.z2_grid_sums.argtypes = [vp, ci, cd, cd, cd, vp, ci, vp, ci, vp, ci, ci, ci,
-                                         ci, ci, vp, vp, vp]
+                                         ci, ci, ci, vp, vp, vp]
             lib.z2_grid_sums.restype = ci
             _LIB = lib
     return _LIB
@@ -194,6 +218,17 @@ def n_split_for(n_blocks: int, n_chunks: int, device: torch.device) -> int:
     blocks of 256 threads per SM, never more splits than chunks."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(n_chunks, math.ceil(4 * sms / n_blocks)))
+
+
+def default_per_split(n_events: int, n_blocks: int, device: torch.device) -> int:
+    """K2's static launch plan: the event split length that gives each of
+    the grid's ``n_blocks`` (tile, row) blocks ``n_split_for`` splits on the
+    card; one split (every event) off the card, where the twin runs."""
+    n_chunks = -(-int(n_events) // EVENT_CHUNK)
+    if torch.device(device).type != "cuda":
+        return max(1, n_chunks) * EVENT_CHUNK
+    n_split = n_split_for(n_blocks, n_chunks, torch.device(device))
+    return -(-n_chunks // n_split) * EVENT_CHUNK
 
 
 # ---------------------------------------------------------------------------
@@ -234,18 +269,19 @@ def empty_launch(device: torch.device) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _f_tiles(f0: float, df: float, n_tiles: int, dtype, device) -> torch.Tensor:
+def _f_tiles(f0: float, df: float, n_tiles: int, dtype, device, tile0: int = 0) -> torch.Tensor:
     # f0 + tile * (T*df): the association of pallas_z2.py:208
-    return f0 + torch.arange(n_tiles, dtype=dtype, device=device) * (TRIAL_TILE * df)
+    return f0 + (torch.arange(n_tiles, dtype=dtype, device=device) + tile0) * (TRIAL_TILE * df)
 
 
 def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
                            half_fdots: torch.Tensor, n_tiles: int, nharm: int,
                            event_chunk: int = EVENT_CHUNK, sixth_fddots: torch.Tensor | None = None,
                            weights: torch.Tensor | None = None, poly: bool = True,
-                           per_split: int | None = None) -> torch.Tensor:
+                           per_split: int | None = None, tile0: int = 0) -> torch.Tensor:
     """Plain twin of K2: (2, n_fdot, n_tiles, nharm, TRIAL_TILE) f32 sums, or
-    (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE) with ``sixth_fddots``.
+    (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE) with ``sixth_fddots``,
+    for the tiles [tile0, tile0 + n_tiles) of the grid that starts at f0.
 
     ``times`` are f64 seconds (pre-centered), ``half_fdots`` f64 0.5*fdot
     and ``sixth_fddots`` f64 fdd/6 per row, ``weights`` optional f32 per
@@ -260,7 +296,7 @@ def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
         parts = [z2_tile_sums_reference(times[e0:e0 + per_split], f0, df, half_fdots, n_tiles,
                                         nharm, event_chunk, sixth_fddots,
                                         None if weights is None else weights[e0:e0 + per_split],
-                                        poly)
+                                        poly, tile0=tile0)
                  for e0 in range(0, n, per_split)]
         out = parts[0]
         for part in parts[1:]:
@@ -269,7 +305,7 @@ def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
     dev = times.device
     n_fdot = half_fdots.shape[0]
     sixth = torch.zeros(1, dtype=torch.float64, device=dev) if sixth_fddots is None else sixth_fddots
-    f_tiles = _f_tiles(f0, df, n_tiles, torch.float64, dev)
+    f_tiles = _f_tiles(f0, df, n_tiles, torch.float64, dev, tile0)
     j_lo = torch.arange(TRIAL_TILE, dtype=torch.float32, device=dev)
     acc = torch.zeros(2, sixth.shape[0], n_fdot, n_tiles, nharm, TRIAL_TILE, dtype=torch.float32,
                       device=dev)
@@ -315,8 +351,8 @@ def _check_f64_vector(x: torch.Tensor, name: str, device: torch.device) -> None:
 def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Tensor,
                  n_tiles: int, nharm: int, *, sixth_fddots: torch.Tensor | None = None,
                  weights: torch.Tensor | None = None, poly: bool = True,
-                 per_split: int | None = None) -> torch.Tensor:
-    """f32 trig sums over the grid f0 + (tile*TRIAL_TILE + j_lo)*df for each
+                 per_split: int | None = None, tile0: int = 0) -> torch.Tensor:
+    """f32 trig sums over the grid f0 + ((tile0 + tile)*TRIAL_TILE + j_lo)*df for each
     fdot row, (2, n_fdot, n_tiles, nharm, TRIAL_TILE), or for each (fddot,
     fdot) row of the cube, (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE),
     when ``sixth_fddots`` (f64 fdd/6) is given: K2 on a CUDA tensor, the twin
@@ -325,7 +361,9 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     ``weights`` (f32 per event) multiply every harmonic's terms; ``poly``
     picks the polynomial sin/cos (True) or f32 sin/cos of 2*pi*frac;
     ``per_split`` fixes the event split length (a multiple of EVENT_CHUNK;
-    default: enough splits to fill the card).
+    default: enough splits to fill the card); ``tile0`` > 0 computes the
+    tiles [tile0, tile0 + n_tiles) of the grid that starts at ``f0``, the
+    same bits as those tiles of one call over the whole grid.
     """
     if times.dtype != torch.float64 or times.dim() != 1 or not times.is_contiguous():
         raise ValueError("z2_tile_sums takes contiguous 1-D float64 times")
@@ -341,6 +379,8 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
         raise ValueError(f"nharm must be in [1, {MAX_NHARM}], got {nharm}")
     if n_tiles < 1 or times.shape[0] < 1:
         raise ValueError("empty grid or event list")
+    if tile0 < 0 or tile0 + n_tiles >= 2**31:
+        raise ValueError("tile0 must be >= 0 and tile0 + n_tiles fit 32-bit ints")
     if n_fddot * half_fdots.shape[0] > MAX_ROWS:
         raise ValueError(f"n_fddot * n_fdot must be <= {MAX_ROWS}")
     if per_split is not None and (per_split < EVENT_CHUNK or per_split % EVENT_CHUNK):
@@ -350,27 +390,27 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     if times.device.type == "cpu":
         return z2_tile_sums_reference(times, f0, df, half_fdots, n_tiles, nharm,
                                       sixth_fddots=sixth_fddots, weights=weights, poly=poly,
-                                      per_split=per_split)
+                                      per_split=per_split, tile0=tile0)
     if times.device.type != "cuda":
         raise ValueError(f"z2_tile_sums: unsupported device {times.device}")
     n = times.shape[0]
     n_fdot = half_fdots.shape[0]
-    n_chunks = -(-n // EVENT_CHUNK)
     if per_split is None:
-        n_split = n_split_for(n_fddot * n_fdot * n_tiles, n_chunks, times.device)
-        per_split = -(-n_chunks // n_split) * EVENT_CHUNK
+        per_split = default_per_split(n, n_fddot * n_fdot * n_tiles, times.device)
     n_split = -(-n // per_split)
     shape = (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE)
     out = torch.empty(shape, dtype=torch.float32, device=times.device)
     partial = (torch.empty((n_split,) + shape, dtype=torch.float32, device=times.device)
                if n_split > 1 else out)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = _lib().z2_grid_sums(
-        times.data_ptr(), n, float(f0), float(TRIAL_TILE * df), float(df),
-        half_fdots.data_ptr(), n_fdot, ptr(sixth_fddots), n_fddot, ptr(weights),
-        n_tiles, nharm, int(bool(poly)), n_split, per_split,
-        partial.data_ptr(), out.data_ptr(), stream_of(times),
-    )
+    lib, stream = _lib(), stream_of(times)
+    with profiling.launch_window():
+        rc = lib.z2_grid_sums(
+            times.data_ptr(), n, float(f0), float(TRIAL_TILE * df), float(df),
+            half_fdots.data_ptr(), n_fdot, ptr(sixth_fddots), n_fddot, ptr(weights),
+            n_tiles, int(tile0), nharm, int(bool(poly)), n_split, per_split,
+            partial.data_ptr(), out.data_ptr(), stream,
+        )
     check_launch(rc, "z2_grid_sums")
     LAUNCHES["z2_tile_sums"] += 1
     return out[:, 0] if sixth_fddots is None else out

@@ -31,13 +31,14 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from crimp_tpu_torch import knobs, obs, resilience
+from crimp_tpu_torch import obs, resilience
 from crimp_tpu_torch.io import parfile as parfile_io
 from crimp_tpu_torch.io import tim as tim_io
 from crimp_tpu_torch.io.parfile import get_parameter_value
 from crimp_tpu_torch.io.yamlcfg import Prior, load_prior
 from crimp_tpu_torch.models import timing
-from crimp_tpu_torch.ops import deltafold
+from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.ops import autotune, deltafold
 from crimp_tpu_torch.ops import fold as fold_ops
 from crimp_tpu_torch.ops import mcmc as mcmc_ops
 from crimp_tpu_torch.pipelines import fit_utils
@@ -332,9 +333,10 @@ def run_mcmc(
 
     Returns (chain, flat, summaries) as numpy."""
     dev = resolve_device(device)
-    if mcmc_delta is None:
-        mcmc_delta = knobs.env_nonneg_int("CRIMP_TORCH_MCMC_DELTA", valid=(0, 1)) or 0
-    _, budget = deltafold.resolve_delta_fold(0, budget)
+    if mcmc_delta is None or budget is None:
+        cfg = autotune.resolve_mcmc_delta(int(np.shape(x)[0]), device=dev)
+        mcmc_delta = cfg["mcmc_delta"] if mcmc_delta is None else mcmc_delta
+        budget = cfg["budget"] if budget is None else budget
     rng = np.random.default_rng(seed)
     ndim = len(keys)
     p0 = np.empty((walkers, ndim))
@@ -364,7 +366,9 @@ def run_mcmc(
         else:
             try:
                 faultinject.fire("mcmc_step")
-                chain, lps = sample(mcmc_ops.delta_logprob, lp_data)
+                with costmodel.kernel_span("mcmc_ensemble_delta"):
+                    chain, lps = sample(mcmc_ops.delta_logprob, lp_data)
+                costmodel.capture("mcmc_ensemble_delta", None, p0, lp_data, steps, out=chain)
                 if np.isnan(lps).any():
                     raise resilience.NonfiniteResultError("delta-basis MCMC produced NaN log-probabilities")
                 obs.counter_add("mcmc_delta_path_steps", steps)
@@ -505,11 +509,12 @@ def fit_toas(
     ``mcmc_seconds`` is the wall time of ``run_mcmc`` (None for the MLE).
     """
     dev = resolve_device(device)
-    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget)
     init_par = parfile_io.read_timing_model(par_in)[2]
     F0 = get_parameter_value(init_par["F0"])
     tim_table = tim_io.read_tim(timfile_path, comment="C")
     toas_pre_fit = load_toas_for_fit(tim_table, init_par, t_start, t_end, t_mjd, mode, device=dev)
+    delta_fold, budget = deltafold.resolve_delta_fold(
+        delta_fold, budget, n_events=len(next(iter(tim_table.values()), ())), device=dev)
     fit_utils.validate_parfile(init_par)
 
     misc_keys = {

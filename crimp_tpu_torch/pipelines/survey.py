@@ -262,7 +262,8 @@ def survey_measure_toas(specs, phShiftRes: int = 1000, nbrBins: int = 15, varyAm
     fallback is rank-partitioned (source i is retried by rank i mod world).
     """
     dev = resolve_device(device)
-    with obs.run("survey_measure_toas"):
+    # every knob resolved inside reads the verdict cache once
+    with obs.run("survey_measure_toas"), autotune.entries_scope(autotune.load_entries()):
         return _survey_impl(list(specs), phShiftRes, nbrBins, varyAmps, dev)
 
 
@@ -285,7 +286,7 @@ def _survey_impl(specs, phShiftRes, nbrBins, varyAmps, dev):
             fallback.append(i)
 
     max_events = max((p.max_seg for p in preps.values()), default=1)
-    resolved = autotune.resolve_multisource(n_total, max(max_events, 1))
+    resolved = autotune.resolve_multisource(n_total, max(max_events, 1), device=dev)
     batched = sorted(preps)
     if not resolved["multisource"]:
         for i in batched:

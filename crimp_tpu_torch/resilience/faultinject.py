@@ -30,6 +30,7 @@ FAULT_POINTS = frozenset({
     "serve_dispatch",    # serve/engine.py: batched/warm request dispatch
     "serve_deadline",    # serve/scheduler.py: deadline-budget evaluation
     "serve_warm_batch",  # serve/engine.py: stacked warm-refold dispatch
+    "scan_chunk",        # ops/resumable.py: chunk compute / checkpoint load
 })
 
 # Spec kind name -> FailureKind the injected exception will classify as.

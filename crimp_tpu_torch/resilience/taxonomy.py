@@ -176,6 +176,16 @@ def classify(exc: BaseException) -> FailureKind:
     return FailureKind.UNKNOWN
 
 
+def sticky_cuda_error(exc: BaseException) -> bool:
+    """Whether ``exc`` is a kernel fault that poisons the CUDA context (an
+    illegal address, a device-side assert, ...): every later call on the
+    card fails the same way, so no retry may follow it."""
+    text = str(exc).lower()
+    return _match(text, _KERNEL_FAULT_PATTERNS) and (
+        (type(exc).__module__ or "").startswith("torch") or "cuda" in text
+        or type(exc).__name__ == "AcceleratorError")
+
+
 def error_record(exc: BaseException) -> dict:
     """Uniform error record for info dicts: kind + class + message."""
     return {

@@ -220,7 +220,13 @@ class ServingEngine:
 
     def step(self) -> list[RequestResult]:
         """Process everything admitted since the last round; one terminal
-        :class:`RequestResult` per drained request, in drain order."""
+        :class:`RequestResult` per drained request, in drain order. Every
+        knob resolved inside the round reads the engine's one copy of the
+        verdict cache (``autotune.entries_scope``)."""
+        with autotune.entries_scope(self._entries()):
+            return self._step()
+
+    def _step(self) -> list[RequestResult]:
         batch = self.queue.drain()
         if not batch:
             return []
@@ -275,12 +281,12 @@ class ServingEngine:
         max_seg = max(max((p.prep.max_seg for p in warm), default=1), 1)
         enabled = self._warm_batch
         if enabled is None:
-            enabled = autotune.resolve_serve_warm_batch(len(warm), max_seg, self._entries())["serve_warm_batch"]
+            enabled = autotune.resolve_serve_warm_batch(len(warm), max_seg, self._entries(), self.device)["serve_warm_batch"]
         if not enabled or len(warm) < 2:
             for p in warm:
                 self._dispatch_warm(p)
             return
-        for bucket in self._buckets(warm, autotune.resolve_multisource(len(warm), max_seg, self._entries())):
+        for bucket in self._buckets(warm, autotune.resolve_multisource(len(warm), max_seg, self._entries(), self.device)):
             self._dispatch_warm_bucket(bucket)
 
     def _dispatch_warm_bucket(self, bucket: list[_Pending]) -> None:
@@ -373,7 +379,7 @@ class ServingEngine:
 
     def _dispatch_cold(self, cold: list[_Pending]) -> None:
         max_seg = max(max((p.prep.max_seg for p in cold), default=1), 1)
-        resolved = autotune.resolve_multisource(len(cold), max_seg, self._entries())
+        resolved = autotune.resolve_multisource(len(cold), max_seg, self._entries(), self.device)
         rung_groups: dict[str, list[_Pending]] = {}
         now = time.perf_counter()
         for p in cold:

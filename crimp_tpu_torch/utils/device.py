@@ -8,9 +8,22 @@ from __future__ import annotations
 
 import torch
 
+# what device=None means; None: the card (utils/platform.force_cpu_platform
+# sets "cpu" for a script run with --cpu)
+_DEFAULT: str | None = None
+
+
+def set_default_device(device: str | None) -> None:
+    """Make ``device=None`` mean ``device`` (None restores the card)."""
+    global _DEFAULT
+    _DEFAULT = device
+
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` (raising when no card is present), else as given."""
+    """``None`` -> ``cuda`` (raising when no card is present) unless a
+    script forced the CPU, else as given."""
+    if device is None:
+        device = _DEFAULT
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -6,9 +6,8 @@ crimp_tpu.ops.autotune.
   neither, with the cache switched off, and across the ceil-log2 size
   buckets; malformed knobs raise in both; the cache hit / miss counters
   count alike;
-- the key layout and ``CRIMP_TORCH_AUTOTUNE``'s words are crimp_tpu's, but
-  for eager tuning (1/on/eager), which raises until the port has a tuner; the
-  port keeps its own file (``crimp_tpu_torch/autotune.json``) and its
+- the key layout and ``CRIMP_TORCH_AUTOTUNE``'s words are crimp_tpu's,
+  eager tuning (1/on/eager) included; the port keeps its own file (``crimp_tpu_torch/autotune.json``) and its
   fingerprint is the device it runs on, so a verdict keyed to another
   platform never steers it;
 - a corrupt or torn cache file is quarantined (renamed ``*.corrupt``) and
@@ -105,10 +104,9 @@ class TestResolvers:
             autotune.store_serve_warm_batch(16, 20000, entry)
             jax_autotune.store_serve_warm_batch(16, 20000, entry)
         got = outcome(autotune.resolve_serve_warm_batch, 16, 20000)
-        if case == "autotune_eager":  # crimp_tpu reads the cache; the port has no tuner and refuses
-            assert got is ValueError and jax_autotune.resolve_serve_warm_batch(16, 20000) == {"serve_warm_batch": 0}
-            return
         assert got == outcome(jax_autotune.resolve_serve_warm_batch, 16, 20000)
+        if case == "autotune_eager":  # eager mode reads the cache as auto does
+            assert got == {"serve_warm_batch": 0}
         if case == "cache_off_verdict":
             assert got == {"serve_warm_batch": 0}
 
@@ -158,9 +156,7 @@ class TestCacheFile:
     @pytest.mark.parametrize("value", ["", "auto", "cache", "0", "off", "never", "1", "on", "eager", "x"])
     def test_mode_words_are_jax(self, monkeypatch, value):
         both_env(monkeypatch, "AUTOTUNE", value)
-        want = outcome(jax_autotune.autotune_mode)
-        # eager tuning needs a tuner, which the port does not have yet
-        assert outcome(autotune.autotune_mode) == (ValueError if want == "eager" else want)
+        assert outcome(autotune.autotune_mode) == outcome(jax_autotune.autotune_mode)
 
     def test_key_layout_and_buckets_are_jax(self):
         for args in (("serve_warm_batch_enable", False, 20000, 16), ("multisource_enable", False, 1, 1),

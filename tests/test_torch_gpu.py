@@ -18,7 +18,11 @@ MCMC fed the same draws (chain and log-probs within rtol 1e-10) are held
 against the same functions run on the CPU. K4, the delta-fold refold, must
 equal its twin bit for bit at P = 13 and 23, batched rows the solo refolds
 and a split of the events the whole run, must refuse malformed operands, and
-the engine's delta mode must lie within 1e-8 cycles of an exact fold.
+the engine's delta mode must lie within 1e-8 cycles of an exact fold. K3
+launched at an explicit split length equal to its static plan must equal the
+default call bit for bit; a kernel span timed by CUDA events must lie within
+5% of the synchronized wall time of a ~90 ms K2 call; K2 at a tile offset
+must give the whole grid's tiles bit for bit.
 """
 
 import pathlib
@@ -632,3 +636,54 @@ class TestServingOnCard:
             eng.step()
         eng.close()
         deltafold.clear_cache()
+
+
+@pytest.mark.gpu
+class TestMeasuringLayerOnCard:
+    def test_k3_explicit_plan_is_bitwise_the_default(self, cuda_device):
+        from crimp_tpu_torch.ops import autotune
+
+        t = torch.as_tensor(_pulsed(60000), device=cuda_device)
+        freqs = torch.as_tensor(np.geomspace(0.2490, 0.2510, 3000), device=cuda_device)
+        half = torch.zeros(1, dtype=torch.float64, device=cuda_device)
+        sixth = torch.zeros(1, dtype=torch.float64, device=cuda_device)
+        for nharm, poly in ((2, True), (25, False)):
+            default = z2_general.general_sums(t, freqs, half, sixth, nharm, poly=poly)
+            plan = z2_general.default_per_split(t.shape[0], freqs.shape[0], 1, nharm, torch.float32, poly,
+                                                cuda_device)
+            assert torch.equal(z2_general.general_sums(t, freqs, half, sixth, nharm, poly=poly, per_split=plan),
+                               default)
+            assert plan == z2_general.LAST_PLAN["per_split"]
+            assert autotune.static_defaults("general", t.shape[0], freqs.shape[0], nharm=nharm, poly=poly,
+                                            device=cuda_device) == (plan, z2_general.THREADS)
+
+    def test_k2_event_span_within_five_percent_of_synchronized_wall(self, cuda_device, monkeypatch, tmp_path):
+        import json
+        import time
+
+        from crimp_tpu_torch import obs
+
+        monkeypatch.setenv("CRIMP_TORCH_OBS", "1")
+        monkeypatch.setenv("CRIMP_TORCH_OBS_DIR", str(tmp_path))
+        t = torch.as_tensor(_pulsed(800000, seed=3), device=cuda_device)
+        freqs = np.linspace(0.2490, 0.2510, 100000)
+        f0, df = search.uniform_grid(freqs)
+        search.harmonic_sums_2d_grid(t, f0, df, freqs.size, [0.0], 2, device=cuda_device)  # warm-up
+        torch.cuda.synchronize()
+        with obs.run("span"):
+            t0 = time.perf_counter()
+            search.harmonic_sums_2d_grid(t, f0, df, freqs.size, [0.0], 2, device=cuda_device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        doc = json.load(open(obs.last_manifest_path()))
+        (span,) = [s for s in doc["spans"] if s["name"] == "grid_sums_2d"]
+        assert span["kind"] == "kernel" and abs(span["dur_s"] - wall) <= 0.05 * wall, (span["dur_s"], wall)
+
+    def test_tile_offset_chunks_are_bitwise_the_whole_grid(self, cuda_device):
+        t = torch.as_tensor(_pulsed(50000), device=cuda_device)
+        freqs = np.linspace(0.2490, 0.2510, 2000)
+        f0, df = search.uniform_grid(freqs)
+        whole = search.z2_power_grid(t, f0, df, freqs.size, 2, device=cuda_device, per_split=50176)
+        part = search.z2_power_grid(t, f0, df, 1000 - 768 + 500, 2, device=cuda_device, per_split=50176,
+                                    tile0=3)[1000 - 768:]
+        assert torch.equal(part, whole[1000:1500])

@@ -8,7 +8,9 @@
   beats crimp_tpu's default: the grid fast path, the factorized grid
   (GRID_MXU, reseed 64), the stream threshold, the dense error window, the
   delta fold and its budget and cache, the delta MCMC and the multisource
-  knobs.
+  knobs, and the knobs of the measuring and tuning layer (GRID_BLOCKS,
+  MXU_BF16, OBS_COST, OBS_LEDGER, RETRIES, BACKOFF_S, COMPILE_CACHE,
+  TRACE_DIR).
 """
 
 import numpy as np
@@ -26,7 +28,8 @@ SUFFIXES = {"GRID_FASTPATH", "GRID_MXU", "STREAM_MIN_EVENTS", "TOA_DENSE_WINDOW"
             "DELTA_FOLD_BUDGET", "FOLD_CACHE", "MCMC_DELTA", "MULTISOURCE", "MULTISOURCE_MAX_PAD",
             "MULTISOURCE_BATCH", "OBS", "OBS_DIR", "OBS_EVENTS", "OBS_HEARTBEAT_S", "OBS_HOST", "FAULTS",
             "AUTOTUNE", "AUTOTUNE_CACHE", "SERVE_QUEUE", "SERVE_DEADLINE_MS", "SERVE_BREAKER", "SERVE_WARM_BATCH",
-            "SERVE_PREP_OVERLAP"}
+            "SERVE_PREP_OVERLAP", "GRID_BLOCKS", "MXU_BF16", "OBS_COST", "OBS_LEDGER", "RETRIES", "BACKOFF_S",
+            "COMPILE_CACHE", "TRACE_DIR"}
 
 
 @pytest.fixture(autouse=True)
@@ -42,12 +45,13 @@ class TestRegistry:
         assert {name[len(knobs.PREFIX):] for name in knobs.REGISTRY} == SUFFIXES
         for name, k in knobs.REGISTRY.items():
             ref = jax_knobs.REGISTRY["CRIMP_TPU_" + name[len(knobs.PREFIX):]]
-            # no tuner in the port: "off unless a tuner winner" is plain off;
-            # the port keeps its own verdict-cache file
-            default = ref.default.replace(" unless a tuner winner", "").replace(
-                "jax process index", "torch.distributed rank").replace("/crimp_tpu/", "/crimp_tpu_torch/")
+            # the port keeps its own verdict-cache file, and its compile
+            # cache is the nvcc build directory of the checkout
+            default = ref.default.replace("jax process index", "torch.distributed rank").replace(
+                "/crimp_tpu/", "/crimp_tpu_torch/").replace("~/.cache/crimp_tpu_torch/jax_cache",
+                                                            "build/kernels (in the checkout)")
             assert (k.kind, k.default, k.numeric) == (ref.kind, default, ref.numeric), name
-        assert "CRIMP_TORCH_MXU_BF16" not in knobs.REGISTRY
+        assert knobs.REGISTRY["CRIMP_TORCH_MXU_BF16"].numeric_key == "grid_mxu"
 
     def test_unregistered_names_and_other_prefixes_raise(self):
         with pytest.raises(KeyError):
@@ -178,6 +182,38 @@ class TestPrecedence:
         with pytest.raises(ValueError, match="CRIMP_TORCH_MULTISOURCE"):
             autotune.resolve_multisource(10, 100)
         assert autotune.multisource_blocks() == (1 << 15, 256)
+
+    def test_new_knobs_read_as_jax(self, monkeypatch, tmp_path):
+        from crimp_tpu_torch.obs import costmodel, ledger
+        from crimp_tpu_torch.resilience import policy
+        from crimp_tpu_torch.utils import platform, profiling
+
+        monkeypatch.setenv("CRIMP_TORCH_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+        # defaults: the static plan, bf16 off, capture on, no ledger, 1 retry
+        # at 0.05 s, the checkout's build directory, no trace
+        assert autotune.env_blocks_override("grid") is None
+        assert autotune.resolve_toafit(1, 1)["mxu_bf16"] == jax_autotune.resolve_toafit(1, 1)["mxu_bf16"] == 0
+        assert costmodel.cost_capture_on() and ledger.env_ledger_path() is None
+        pol = policy.default_policy()
+        assert (pol.retries, pol.backoff_s) == (1, 0.05)
+        assert platform.compilation_cache_dir() == platform.DEFAULT_BUILD_DIR
+        with profiling.trace() as prof:
+            assert prof is None
+        for suffix, value in (("GRID_BLOCKS", "2048,256"), ("MXU_BF16", "1"), ("OBS_COST", "0"),
+                              ("OBS_LEDGER", str(tmp_path / "l.jsonl")), ("RETRIES", "0"), ("BACKOFF_S", "0"),
+                              ("COMPILE_CACHE", str(tmp_path / "k")), ("TRACE_DIR", str(tmp_path / "t"))):
+            monkeypatch.setenv(f"CRIMP_TORCH_{suffix}", value)
+        assert autotune.resolve_blocks("grid", 100, 100) == (2048, 256)
+        assert autotune.resolve_toafit(1, 1)["mxu_bf16"] == 1
+        assert not costmodel.cost_capture_on() and ledger.env_ledger_path() == str(tmp_path / "l.jsonl")
+        pol = policy.default_policy()
+        assert (pol.retries, pol.backoff_s) == (0, 0.0)
+        assert platform.compilation_cache_dir() == tmp_path / "k"
+        with profiling.trace() as prof:
+            assert prof is not None
+        # the other package's settings never steer the port
+        monkeypatch.setenv("CRIMP_TPU_GRID_BLOCKS", "4096,128")
+        assert autotune.resolve_blocks("grid", 100, 100) == (2048, 256)
 
     def test_mcmc_delta_knob(self, monkeypatch, tmp_path):
         import json

@@ -166,13 +166,13 @@ class TestFaultInjector:
     def test_points_are_a_subset_of_jax(self):
         assert faultinject.FAULT_POINTS == {"fold_sources", "fold_cache", "harmonic_sums", "survey_bucket",
                                             "mcmc_step", "tuner_cache", "serve_admission", "serve_dispatch",
-                                            "serve_deadline", "serve_warm_batch"}
+                                            "serve_deadline", "serve_warm_batch", "scan_chunk"}
         assert faultinject.FAULT_POINTS <= jax_faultinject.FAULT_POINTS
         assert faultinject.KIND_NAMES.keys() == jax_faultinject.KIND_NAMES.keys()
 
     @pytest.mark.parametrize("spec", ["zap:fold_cache:1", "oom:fold_cache:x", "oom:fold_cache:0",
                                       "oom:fold_cache:0+", "oom:fold_cache:x+", "oom:fold_cache",
-                                      "oom:scan_chunk:1"])
+                                      "oom:scan_chunks:1"])
     def test_typos_fail_loudly(self, monkeypatch, spec):
         monkeypatch.setenv("CRIMP_TORCH_FAULTS", spec)
         with pytest.raises(ValueError, match="CRIMP_TORCH_FAULTS"):
@@ -217,6 +217,89 @@ class TestPolicy:
         doc = json.load(open(obs.last_manifest_path()))
         assert doc["counters"]["degraded_grid_streamed"] == 1
         assert doc["degradations"] == ["grid:streamed:resource_exhausted"]
+
+
+class TestRetry:
+    """Same-mode retry (``retry_call``) against crimp_tpu's: the same kinds,
+    attempts, deterministic backoff and deadline skip; never a KernelError or
+    a sticky CUDA error."""
+
+    def test_defaults_and_knobs_are_jax(self, monkeypatch):
+        for suffix, value in ((None, None), ("RETRIES", "3"), ("BACKOFF_S", "0.2")):
+            if suffix:
+                monkeypatch.setenv(f"CRIMP_TORCH_{suffix}", value)
+                monkeypatch.setenv(f"CRIMP_TPU_{suffix}", value)
+            got, want = policy.default_policy(), jax_policy.default_policy()
+            assert (got.retries, got.backoff_s) == (want.retries, want.backoff_s)
+            assert {k.value for k in got.kinds} == {k.value for k in want.kinds}
+            for attempt in range(3):
+                assert got.delay_s(attempt, "scan_chunk") == want.delay_s(attempt, "scan_chunk")
+        monkeypatch.setenv("CRIMP_TORCH_RETRIES", "many")
+        with pytest.raises(ValueError, match="CRIMP_TORCH_RETRIES"):
+            policy.default_policy()
+
+    def test_same_bits_after_one_retry(self, obs_on, monkeypatch):
+        monkeypatch.setenv("CRIMP_TORCH_BACKOFF_S", "0")
+        t = grid_events()
+        want = search.z2_power_grid(t, 0.1425, 1e-6, 128, 2, mxu=False, device="cpu")
+        calls = []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) == 1:
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+            return search.z2_power_grid(t, 0.1425, 1e-6, 128, 2, mxu=False, device="cpu")
+
+        with obs.run("retry"):
+            got = policy.retry_call(flaky, point="scan_chunk")
+        assert torch.equal(got, want) and len(calls) == 2
+        counters = json.load(open(obs.last_manifest_path()))["counters"]
+        assert counters["retries"] == 1 and counters["retries_scan_chunk"] == 1
+
+    def test_budget_and_non_retryable_kinds_reraise(self):
+        for exc in (ValueError("bad input"), resilience.CacheCorruptError("torn")):
+            calls = []
+            with pytest.raises(type(exc)):
+                policy.retry_call(lambda: calls.append(1) or (_ for _ in ()).throw(exc), point="p",
+                                  policy=policy.RetryPolicy(retries=3, backoff_s=0.0))
+            assert len(calls) == 1
+        calls = []
+        with pytest.raises(TimeoutError):
+            policy.retry_call(lambda: calls.append(1) or (_ for _ in ()).throw(TimeoutError("slow")), point="p",
+                              policy=policy.RetryPolicy(retries=2, backoff_s=0.0))
+        assert len(calls) == 3
+
+    def test_deadline_skips_a_retry_that_cannot_fit(self, obs_on):
+        calls = []
+
+        def slow():
+            calls.append(1)
+            raise TimeoutError("slow")
+
+        with obs.run("deadline"):
+            with pytest.raises(TimeoutError):
+                policy.retry_call(slow, point="p", policy=policy.RetryPolicy(retries=3, backoff_s=10.0),
+                                  deadline_s=1.0)
+        assert len(calls) == 1
+        assert json.load(open(obs.last_manifest_path()))["counters"]["retries_deadline_skipped"] == 1
+        ref_calls = []
+        with pytest.raises(TimeoutError):
+            jax_policy.retry_call(lambda: ref_calls.append(1) or (_ for _ in ()).throw(TimeoutError("slow")),
+                                  point="p", policy=jax_policy.RetryPolicy(retries=3, backoff_s=10.0),
+                                  deadline_s=1.0)
+        assert len(ref_calls) == len(calls)
+
+    @pytest.mark.parametrize("exc", [KernelError("z2_grid_sums: CUDA error 700 at launch"),
+                                     RuntimeError("CUDA error: an illegal memory access was encountered"),
+                                     RuntimeError("CUDA error: device-side assert triggered")])
+    def test_kernel_errors_and_sticky_cuda_errors_are_never_retried(self, exc):
+        assert taxonomy.classify(exc) in policy.RETRYABLE_KINDS  # UNKNOWN: retryable by kind alone
+        calls = []
+        with pytest.raises(type(exc)):
+            policy.retry_call(lambda: calls.append(1) or (_ for _ in ()).throw(exc), point="p",
+                              policy=policy.RetryPolicy(retries=3, backoff_s=0.0))
+        assert len(calls) == 1
+        assert taxonomy.sticky_cuda_error(exc) == (not isinstance(exc, KernelError))
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +357,9 @@ class TestGridLadder:
         assert doc["degraded"] is False and doc["degradations"] == []
         arm(monkeypatch, "oom:harmonic_sums:1")
         search.z2_power_2d_grid(times, 0.1425, 1e-6, 64, [0.0], 2, mxu=True, device="cpu")
-        assert faultinject.plan_snapshot() == {}  # the 2-D wrapper has no fault point
+        # the 2-D wrapper has no harmonic_sums fault point (its knob
+        # resolution reads the verdict cache, whose tuner_cache point fires)
+        assert faultinject.plan_snapshot()["harmonic_sums"]["calls"] == 0
 
     def test_kernel_error_passes_through(self, monkeypatch, obs_on):
         times = grid_events()

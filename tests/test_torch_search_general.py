@@ -238,12 +238,19 @@ import chip_smoke
 bad = [m for m in sys.modules if m in ("jax", "crimp_tpu") or m.startswith(("jax.", "crimp_tpu."))]
 print("MODULES", len(names), "serve" in " ".join(names))
 print("BAD", bad)
+print("MISSING", sorted(set({layer!r}) - set(names)))
 """
+
+# the modules of the measuring and tuning layer, which the walk must reach
+LAYER_MODULES = ("crimp_tpu_torch.aot", "crimp_tpu_torch.obs.costmodel", "crimp_tpu_torch.obs.roofline",
+          "crimp_tpu_torch.obs.ledger", "crimp_tpu_torch.ops.resumable", "crimp_tpu_torch.utils.profiling",
+          "crimp_tpu_torch.utils.platform", "crimp_tpu_torch.utils.benchwork")
 
 
 def test_new_modules_import_neither_jax_nor_crimp_tpu():
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK.format(repo=str(REPO))], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_CHECK.format(repo=str(REPO), layer=LAYER_MODULES)], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "MODULES" in proc.stdout and " True" in proc.stdout, proc.stdout
     assert "BAD []" in proc.stdout, proc.stdout
+    assert "MISSING []" in proc.stdout, proc.stdout
