@@ -2,8 +2,10 @@
 
 Port of ``crimp_tpu/io/events.py`` without pandas: the TIME/PI table is a
 dict of numpy columns (``time_energy_df["TIME"]`` keeps the reference's
-name). Events are read through the pure-Python FITS layer; the native mmap
-column reader comes in a later slice.
+name). The TIME/PI columns come from the native mmap reader (``io/native``,
+``native/crimpio.cpp``) when its library loads, else from the pure-Python
+FITS layer, with the same bits; ``EventFile.reader`` says which one ran,
+and each fallback is counted (``native_fallbacks``).
 
 - essential header keywords (TELESCOP/INSTRUME/TSTART/TSTOP/TIMESYS/MJDREF
   from MJDREFI+MJDREFF or MJDREF, plus optional mission keywords),
@@ -55,6 +57,7 @@ class EventFile:
     def __init__(self, evtFile: str):
         self.evtFile = str(evtFile)
         self.time_energy_df: dict | None = None
+        self.reader: str | None = None  # "native" or "pure": the last column read
         self._fits: fitsio.FITSFile | None = None
 
     def _open(self) -> fitsio.FITSFile:
@@ -117,14 +120,27 @@ class EventFile:
         return keywords, gti_list
 
     def build_time_energy_df(self) -> "EventFile":
-        """Build the TIME (MJD) / PI (keV) columns from the EVENTS table."""
+        """Build the TIME (MJD) / PI (keV) columns from the EVENTS table.
+
+        Large files go through the native mmap reader (``io/native``) when
+        its library loads; the pure-Python FITS layer is the always-correct
+        fallback, counted in ``native_fallbacks``."""
+        from crimp_tpu_torch.io import native
+
         keywords = self.read_header_keywords()
         telescope = keywords["TELESCOPE"]
         energy_col = "PHA" if telescope == "GLAST" else "PI"
 
-        events = self._open()["EVENTS"]
-        time_met = np.asarray(events.column("TIME"), dtype=np.float64)
-        energy = np.asarray(events.column(energy_col), dtype=np.float64)
+        columns = native.read_columns(self.evtFile, "EVENTS", ["TIME", energy_col])
+        if columns is not None:
+            time_met, energy = columns["TIME"], columns[energy_col]
+            self.reader = "native"
+        else:
+            native.note_fallback(f"{self.evtFile} EVENTS")
+            events = self._open()["EVENTS"]
+            time_met = np.asarray(events.column("TIME"), dtype=np.float64)
+            energy = np.asarray(events.column(energy_col), dtype=np.float64)
+            self.reader = "pure"
 
         time_mjd = time_met / 86400.0 + keywords["MJDREF"]
         if telescope == "GLAST":

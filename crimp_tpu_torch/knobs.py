@@ -103,6 +103,8 @@ REGISTRY: dict[str, Knob] = _build_registry((
     Knob("CRIMP_TORCH_MULTISOURCE_BATCH", "unset (resolved source block)", "int",
          consumer="ops/multisource.py via ops/autotune.py",
          doc="hard cap on sources per batched survey dispatch (0 = no cap)"),
+    Knob("CRIMP_TORCH_SHARD", "auto", "bool", consumer="parallel/mesh.py",
+         doc="multi-device auto-sharding opt-out (mesh-shape invariance is pinned by tests)"),
     Knob("CRIMP_TORCH_AUTOTUNE", "auto", "enum", consumer="ops/autotune.py",
          doc="tuner policy: off / auto (cached winners only) / eager"),
     Knob("CRIMP_TORCH_AUTOTUNE_CACHE", "~/.cache/crimp_tpu_torch/autotune.json", "path",
@@ -115,6 +117,12 @@ REGISTRY: dict[str, Knob] = _build_registry((
     Knob("CRIMP_TORCH_TRACE_DIR", "unset", "path", consumer="utils/profiling.py",
          doc="torch.profiler trace directory for profiling.trace()"),
     # -- serving (host-side orchestration; numeric-neutral by contract) -----
+    # -- multi-process execution (the process axis carries trials and
+    #    sources, never a reduction: bitwise at 1, 2 and 4 processes) -------
+    Knob("CRIMP_TORCH_DIST", "unset (single process)", "str",
+         consumer="parallel/multihost.py",
+         doc="torch.distributed bring-up spec 'host:port,num_processes,process_id'; unset/off = "
+             "single-process. NCCL when the ranks' tensors live on the card, gloo on the CPU"),
     Knob("CRIMP_TORCH_SERVE_QUEUE", "64", "int",
          consumer="crimp_tpu_torch/serve/admission.py",
          doc="admission-queue capacity per priority class; a full class rejects new requests "

@@ -279,15 +279,15 @@ class RunRecorder:
 
     def _resolve_device_spans(self, wait: bool = False) -> None:
         """Fill the durations of kernel spans timed by CUDA events whose end
-        event has completed (all of them with ``wait``, which synchronizes
-        the card first), and emit their span events."""
+        event has completed (all of them with ``wait``, which waits for
+        each end event on its own card), and emit their span events."""
         with _LOCK:
             pending, self._device_spans = self._device_spans, []
-        if pending and wait and _card_live():
-            torch.cuda.synchronize()
         later = []
         for idx, start, end in pending:
-            if not end.query():
+            if wait:
+                end.synchronize()  # the end's own card (a span may cover several)
+            elif not end.query():
                 later.append((idx, start, end))
                 continue
             row = self.spans[idx]

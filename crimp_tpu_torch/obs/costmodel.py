@@ -101,9 +101,22 @@ def _numeric_knob_sig() -> str:
                     if knobs.REGISTRY[name].numeric and knobs.raw(name))
 
 
-def fingerprint(name: str, args: tuple, kwargs: dict) -> str:
+def _plan_sig(plan) -> str:
+    """Fingerprint token of a registry sharding plan: its rule, the mesh's
+    shape and its card count, so a sharded row never aliases the unsharded
+    one, nor a mesh of other cards."""
+    if plan is None:
+        return ""
+    mesh = plan.mesh
+    cards = mesh.cards() if hasattr(mesh, "cards") else None
+    return ("plan:" + plan.rule.kernel + ";" + ",".join(f"{a}={mesh.shape[a]}" for a in mesh.axis_names)
+            + f";cards={cards}")
+
+
+def fingerprint(name: str, args: tuple, kwargs: dict, plan=None) -> str:
     """``cost|<platform>|<device kind>|<kernel>|<sha>``: the disk-cache key."""
-    body = "|".join([_numeric_knob_sig()] + [_leaf_sig(leaf) for leaf in _leaves((args, kwargs))])
+    body = "|".join(([_plan_sig(plan)] if plan is not None else []) + [_numeric_knob_sig()]
+                    + [_leaf_sig(leaf) for leaf in _leaves((args, kwargs))])
     sha = hashlib.sha1(body.encode()).hexdigest()[:16]
     return f"cost|{_platform_peek()}|{name}|{sha}"
 
@@ -146,10 +159,19 @@ def meta_flops(fn, args: tuple, kwargs: dict) -> float | None:
     return float(total) if total > 0 else None
 
 
-def analyze(fn, args: tuple, kwargs: dict, counts=None, out=None) -> dict:
+def analyze(fn, args: tuple, kwargs: dict, counts=None, out=None, plan=None) -> dict:
     """The cost row of one call: FLOPs and bytes from ``counts`` (the hand
     kernels' formulas) or a meta run of ``fn`` (torch code; None skips it),
-    argument and output bytes from the tensors."""
+    argument and output bytes from the tensors.
+
+    With a registry ``plan`` (``parallel/registry.KernelSharding``) the
+    counts are per shard, as JAX's per-device rows, and the row carries
+    ``devices`` (the shard count), ``cards`` (the distinct devices under
+    them: several shards may share one card), ``sharded``, ``reduce_axes``
+    and the per-shard ``collective_bytes`` of the kernel's cross-shard
+    reduce, split into ``collective_bytes_ici`` (within a process) and
+    ``collective_bytes_dcn`` (across processes), over the global outputs
+    ``out``."""
     from crimp_tpu_torch.parallel import multihost
 
     row: dict = {"flops": None, "bytes_accessed": None, "transcendentals": None,
@@ -166,29 +188,39 @@ def analyze(fn, args: tuple, kwargs: dict, counts=None, out=None) -> dict:
     elif fn is not None:
         row["flops"] = meta_flops(fn, args, kwargs)
         row["flops_source"] = "flop_counter" if row["flops"] is not None else None
+    if plan is not None:
+        row["devices"] = int(plan.device_count())
+        row["cards"] = int(plan.mesh.cards()) if hasattr(plan.mesh, "cards") else row["devices"]
+        row["sharded"] = row["devices"] > 1
+        row["reduce_axes"] = list(plan.rule.reduce_axes)
+        split = plan.collective_bytes_split(list(out) if isinstance(out, (list, tuple)) else [out])
+        row["collective_bytes"] = float(split["ici"] + split["dcn"])
+        row["collective_bytes_ici"] = float(split["ici"])
+        row["collective_bytes_dcn"] = float(split["dcn"])
     row["process_index"], row["process_count"] = multihost.process_identity()
     return row
 
 
-def capture(name: str, fn, *args, counts=None, out=None, **kwargs) -> dict | None:
+def capture(name: str, fn, *args, counts=None, out=None, plan=None, **kwargs) -> dict | None:
     """Record the cost row of one kernel call under span name ``name``.
 
     Call sites invoke this right after the call with the same arguments;
     ``counts`` (keyword-only: a dict, or a callable returning one, of
     ``flops``/``bytes_accessed``) gives a hand kernel's counts, ``out`` the
-    call's result (its bytes). Returns the row (also recorded on the active
-    run), or None: no active run, capture off, or a failure."""
+    call's result (its bytes), ``plan`` the registry plan of a sharded
+    call. Returns the row (also recorded on the active run), or None: no
+    active run, capture off, or a failure."""
     if obs_core.active() is None or not cost_capture_on():
         return None
     try:
-        key = fingerprint(name, args, kwargs)
+        key = fingerprint(name, args, kwargs, plan=plan)
         row = _MEM_CACHE.get(key)
         cache = "mem"
         if row is None:
             row = _disk_get(key)
             cache = "disk"
         if row is None:
-            row = analyze(fn, args, kwargs, counts=counts, out=out)
+            row = analyze(fn, args, kwargs, counts=counts, out=out, plan=plan)
             cache = "miss"
             _disk_put(key, row)
         _MEM_CACHE[key] = row

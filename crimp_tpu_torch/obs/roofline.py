@@ -96,12 +96,12 @@ def analyze(doc: dict) -> dict:
     peak_bandwidth)), and ``bound`` ("compute" / "memory" by the ridge
     point, or "comm" when the collective dominates — see below).
 
-    Sharded rows (cost rows with ``devices > 1``, captured from the
-    GSPMD-partitioned program, so flops/bytes are already PER DEVICE)
-    additionally carry ``devices``, the aggregate achieved rates
-    (``agg_flops_per_s``/``agg_bytes_per_s`` = per-device x devices),
-    ``collective_bytes_per_call`` (the registry's ring all-reduce
-    estimate, split into ``collective_bytes_ici``/``collective_bytes_dcn``
+    Sharded rows (cost rows with ``devices > 1``, whose flops/bytes count
+    PER SHARD, as JAX's per-device rows) additionally carry ``devices``,
+    the aggregate achieved rates (``agg_flops_per_s``/``agg_bytes_per_s``
+    = per card x cards), ``collective_bytes_per_call`` (the registry's
+    ring all-reduce estimate, split into
+    ``collective_bytes_ici``/``collective_bytes_dcn``
     legs on manifests captured under a multi-process mesh), and
     ``comm_vs_roof`` — the ratio of the estimated collective time (each
     leg priced at its own bandwidth: ICI within a host, DCN across
@@ -111,7 +111,11 @@ def analyze(doc: dict) -> dict:
     ``process_index``/``process_count`` stamps (per-host rows). When any sharded row exists, ``aggregate``
     holds the N-device roofline (single-chip peaks x the widest row's
     device count; per-row pct_of_roof is per-device and is unchanged by
-    that uniform scaling). Fields degrade to None wherever the manifest
+    that uniform scaling). A port row also carries ``cards``, the
+    distinct devices under its shards: a card that runs several shards
+    does all of their work within the call's span, so its share is
+    computed from devices / cards shards' counts, and the aggregate roof
+    counts cards. Fields degrade to None wherever the manifest
     is partial (CPU rows without cost_analysis, cost rows without a
     matching span, no peak entry).
     """
@@ -136,6 +140,13 @@ def analyze(doc: dict) -> dict:
         calls = agg["count"] if agg else 0
         flops = cost.get("flops")
         nbytes = cost.get("bytes_accessed")
+        cards = cost.get("cards")
+        if isinstance(cards, (int, float)) and cards >= 1 and isinstance(cost.get("devices"), (int, float)):
+            # the port's sharded rows count per shard; a card running several
+            # shards does all of their work within the call's span
+            per_card = float(cost["devices"]) / float(cards)
+            flops = flops * per_card if isinstance(flops, (int, float)) else flops
+            nbytes = nbytes * per_card if isinstance(nbytes, (int, float)) else nbytes
         # the cost row is per CALL; the rollup sums over calls
         tot_flops = flops * calls if isinstance(flops, (int, float)) else None
         tot_bytes = nbytes * calls if isinstance(nbytes, (int, float)) else None
@@ -197,8 +208,8 @@ def analyze(doc: dict) -> dict:
             "pct_of_roof": round(pct, 3) if pct is not None else None,
             "bound": bound,
             "devices": ndev,
-            "agg_flops_per_s": fps * ndev if fps is not None else None,
-            "agg_bytes_per_s": bps * ndev if bps is not None else None,
+            "agg_flops_per_s": fps * (int(cards) if cards else ndev) if fps is not None else None,
+            "agg_bytes_per_s": bps * (int(cards) if cards else ndev) if bps is not None else None,
             "collective_bytes_per_call": coll,
             "collective_bytes_ici": coll_ici,
             "collective_bytes_dcn": coll_dcn,
@@ -212,9 +223,11 @@ def analyze(doc: dict) -> dict:
         })
         if agg and agg.get("primed"):
             rows[-1]["primed_calls"] = agg["primed"]
+        if isinstance(cards, (int, float)) and cards >= 1:
+            rows[-1]["cards"] = int(cards)
     rows.sort(key=lambda r: -(r["sum_s"] or 0.0))
     pcts = [r["pct_of_roof"] for r in rows if r["pct_of_roof"] is not None]
-    shard_devs = [r["devices"] for r in rows if r["devices"] > 1]
+    shard_devs = [r.get("cards") or r["devices"] for r in rows if (r.get("cards") or r["devices"]) > 1]
     aggregate = None
     if shard_devs and peak:
         n = max(shard_devs)

@@ -316,7 +316,7 @@ def _launch_refold(folded: torch.Tensor, basis: torch.Tensor, dp: torch.Tensor) 
 
     out = torch.empty_like(folded)
     stream = z2_grid.stream_of(folded)
-    with profiling.launch_window():
+    with profiling.launch_window(folded.device):
         rc = lib.deltafold_refold(folded.data_ptr(), basis.data_ptr(), dp.data_ptr(), out.data_ptr(),
                                   n_batch, n_events, basis.shape[2], stream)
     z2_grid.check_launch(rc, "deltafold_refold")

@@ -25,8 +25,12 @@ rows beside a row: they match the single-source survey path
 padding is exact (every source in a bucket padded to the width its solo
 run uses), not bit for bit.
 
-Source-axis sharding (``_maybe_shard_sources``) waits for the port's
-parallel layer: every call here runs on one device.
+The stacked fold shards its source rows over the shards of a source mesh
+when the job has several devices of the call's type
+(``_maybe_shard_sources``; across processes the global source mesh, each
+process folding only its own rows and ``multihost.fetch_global`` gathering
+them in rank order): pure data parallelism, bitwise the one-device fold.
+``CRIMP_TORCH_SHARD=0`` opts out. The fit and the H-test run on one device.
 """
 
 from __future__ import annotations
@@ -258,6 +262,10 @@ def fold_sources(timing_models, seg_times_list, t_ref_list=None, device=None):
         for r, (_, delta, anchor_idx, _, _) in enumerate(part):
             delta_pad[r, : delta.size] = delta
             idx_pad[r, : anchor_idx.size] = anchor_idx
+        shard = _maybe_shard_sources(len(part), dev)
+        if shard is not None:
+            folded_rows.extend(_sharded_fold(sm, delta_pad, idx_pad, *shard))
+            continue
         delta_dev = torch.as_tensor(delta_pad, device=dev)
         idx_dev = torch.as_tensor(idx_pad, device=dev)
         with costmodel.kernel_span("stacked_fold"):
@@ -270,6 +278,63 @@ def fold_sources(timing_models, seg_times_list, t_ref_list=None, device=None):
         phase_lists.append(list(np.split(flat, np.cumsum(sizes)[:-1])) if sizes else [])
         t_refs.append(t_ref)
     return phase_lists, t_refs
+
+
+def _maybe_shard_sources(n: int, dev: torch.device):
+    """(source mesh, registry plan, padding rows) when an n-source chunk
+    shards, else None: sharding on, the job's shards of ``dev``'s type
+    number at least two, and n at least one source a shard. Across
+    processes the mesh is ``multihost.global_source_mesh`` (host-major),
+    else ``parallel.mesh.source_mesh`` over this process's devices."""
+    from crimp_tpu_torch.parallel import mesh as pmesh
+    from crimp_tpu_torch.parallel import multihost, registry
+
+    if not pmesh.sharding_enabled():
+        return None
+    local = pmesh.available_devices()
+    if len(local) < 1 or any(d.type != dev.type for d in local):
+        return None
+    smesh = multihost.global_source_mesh() if multihost.process_identity()[1] > 1 else pmesh.source_mesh(local)
+    if smesh.size < 2 or n < smesh.size:
+        return None
+    return smesh, registry.specs_for("stacked_fold", smesh), pmesh.pad_batch_for_mesh(n, smesh, pmesh.SOURCE_AXIS)
+
+
+def _sharded_fold(sm: StackedAnchoredModel, delta: np.ndarray, idx: np.ndarray, smesh, plan, pad: int):
+    """The chunk's folded rows (numpy, padding dropped) with the source axis
+    padded by ``pad`` inert rows and split over ``smesh``: each local shard
+    folds its block on its device, then ``fetch_global`` joins every
+    process's rows in rank order. Bitwise the one-device fold."""
+    from crimp_tpu_torch.parallel import mesh as pmesh
+    from crimp_tpu_torch.parallel import multihost
+
+    n = sm.n_source
+    if pad:
+        sm = concat_stacked(sm, inert_rows(sm, pad))
+        delta = np.concatenate([delta, np.zeros((pad,) + delta.shape[1:])])
+        idx = np.concatenate([idx, np.zeros((pad,) + idx.shape[1:], dtype=idx.dtype)])
+    total = n + pad
+    if smesh.group is not None:
+        lo, hi = multihost.process_local_rows(total)
+
+        def put(arr):
+            return multihost.global_array(np.asarray(arr)[lo:hi], smesh, plan.spec("rows"), np.shape(arr))
+    else:
+        def put(arr):
+            return pmesh.shard_sources(arr, smesh)
+    fields = {name: put(getattr(sm, name).cpu().numpy()) for name in _FIELDS}
+    d_sh, i_sh = put(delta), put(idx)
+
+    def fold(slot, d_blk, i_blk, *field_blks):
+        return stacked_fold(StackedAnchoredModel(**dict(zip(_FIELDS, field_blks))), d_blk, i_blk)
+
+    with costmodel.kernel_span("stacked_fold"):
+        parts = pmesh.map_blocks(fold, d_sh, i_sh, *(fields[name] for name in _FIELDS))
+    folded = pmesh.Sharded(smesh, plan.spec("rows"), delta.shape,
+                           [(slot, lo, hi, out) for (slot, lo, hi, _), out in zip(d_sh.blocks, parts)])
+    rows = multihost.fetch_global(folded)[:n]
+    costmodel.capture("stacked_fold", None, sm, delta, idx, out=rows, plan=plan)
+    return list(rows)
 
 
 # ---------------------------------------------------------------------------

@@ -26,13 +26,19 @@ beside them. So a resumed scan equals the uninterrupted one bit for bit,
 and both equal ``PeriodSearch`` under the same plan.
 
 Every numeric mode is pinned in the store: trig mode, fast path, launch
-plan, grid_mxu, delta_fold and mcmc_delta. A store whose modes differ only
-by a resolved preference (an env knob, a re-tuned plan) adopts the store's
-modes, visibly; an explicit conflicting choice refuses. Chunk computation
+plan, grid_mxu, delta_fold, mcmc_delta and the event-shard count. A store
+whose modes differ only by a resolved preference (an env knob, a re-tuned
+plan) adopts the store's modes, visibly; an explicit conflicting choice
+refuses. Chunk computation
 retries through ``resilience.retry_call`` at point ``scan_chunk`` (a
 ``KernelError`` never retries), and every finished chunk beats the
-heartbeat. The auto-sharded multi-device path of the JAX package waits for
-the port's parallel layer.
+heartbeat. On a job with several devices a scan of at least
+``search.MIN_SHARD_PAIRS`` (trial, event) pairs runs every chunk through
+``parallel.mesh``'s twins (``auto_mesh``, decided once for the whole grid)
+with the same pinned plan and tile offset, so sharded chunks are bitwise
+the whole sharded scan, and bitwise the one-device scan where each event
+shard holds whole splits. A store resumed with another event-shard count
+refuses: a chunk's sums can round with that count.
 """
 
 from __future__ import annotations
@@ -146,6 +152,8 @@ class ResumableScan:
         r = autotune.resolve_delta_fold(len(self.times), device=self.device)
         self._delta_fold = bool(r["delta_fold"])
         self._delta_fold_budget = float(r["budget"])
+        # one sharding decision, at the whole grid's size, for every chunk
+        self._shard_mesh = self._resolve_mesh(n_rows)
         self._numeric_mode = {
             "poly_trig": bool(self.poly),
             "grid_fastpath": bool(self._fastpath),
@@ -155,6 +163,7 @@ class ResumableScan:
             # the delta-basis MCMC never runs inside a scan, but it shares the
             # session's numeric-mode fingerprint
             "mcmc_delta": [int(autotune.resolve_mcmc_delta(len(self.times), device=self.device)["mcmc_delta"])],
+            "event_shards": self._event_shards(),
         }
         self._times_dev = None
         self.store = pathlib.Path(store) if store is not None else None
@@ -213,6 +222,11 @@ class ResumableScan:
             and mxu_ok and not (self._mxu_explicit and bool(store_mxu[0]) != self._mxu)
             and df_ok and not (self._deltafold_explicit and bool(store_df[0]) != self._delta_fold)
         )
+        if mode.get("event_shards", 1) != self._event_shards():
+            raise ValueError(f"checkpoint store {self.store} was written with {mode.get('event_shards', 1)} event "
+                             f"shard(s) per chunk and this job makes {self._event_shards()}; a chunk's sums can "
+                             "round with its shard count, so resume with the store's devices (parallel.mesh; "
+                             "CRIMP_TORCH_SHARD) or use a fresh store directory")
         if not adoptable:
             raise ValueError(f"checkpoint store {self.store} belongs to a different problem (manifest "
                              "fingerprint mismatch); refusing to mix chunks — use a fresh store directory")
@@ -285,33 +299,74 @@ class ResumableScan:
             kw["per_split"] = int(self._blocks[0])
         return kw
 
+    def _resolve_mesh(self, n_rows: int):
+        """The auto-sharding mesh of every chunk, mirroring
+        ``PeriodSearch._mesh`` at the whole grid's size (None below
+        ``search.MIN_SHARD_PAIRS`` pairs, on one device, and for
+        semi-coherent scans, which drive their own dispatch)."""
+        from crimp_tpu_torch.ops.search import MIN_SHARD_PAIRS
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        if self.semicoherent or len(self.times) * len(self.freqs) * n_rows < MIN_SHARD_PAIRS:
+            return None
+        return pmesh.auto_mesh(device=self.device)
+
+    def _event_shards(self) -> int:
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        return 1 if self._shard_mesh is None else int(self._shard_mesh.shape.get(pmesh.EVENT_AXIS, 1))
+
+    def _sum_rows(self):
+        """(fdots, fddots) of a chunk's trig sums: the scan's rows, or the
+        single zero-fdot row of a 1-D scan and of the H-test."""
+        if self.statistic == "h" or self._squeeze:
+            return (0.0,), None
+        return self.fdots, self.fddots
+
+    def _rows(self, c: torch.Tensor, s: torch.Tensor, cut: slice) -> torch.Tensor:
+        """The chunk's (n_rows, k) Z^2 or (1, k) H rows from its f64 trig
+        sums (each (n_fddot, n_fdot, nharm, n) with the chunk's trials at
+        ``cut``), formed as the one-device wrappers form them, whichever
+        path (one device, the mesh's twins, streamed) gave the sums."""
+        from crimp_tpu_torch.ops import search
+
+        n = len(self.times)
+        if self.statistic == "h":
+            rows = search.h_from_sums(c[0, 0], s[0, 0], n, dim=0)[None, :]
+        elif self.fddots is not None:
+            rows = torch.sum(search.z2_from_sums(c, s, n), dim=2)
+        elif self._squeeze:
+            rows = torch.sum(search.z2_from_sums(c[0, 0], s[0, 0], n), dim=0)[None, :]
+        else:
+            rows = torch.sum(search.z2_from_sums(c[0], s[0], n), dim=1)
+        return rows[..., cut].reshape(-1, cut.stop - cut.start)
+
     def _compute_chunk_device(self, i: int) -> torch.Tensor:
         """(n_rows, k) Z^2 (or (1, k) H) rows of trial chunk i, on the
         device. A uniform chunk is the whole grid's trial tiles that cover
-        it (``tile0``), sliced; a non-uniform chunk is its own trials."""
+        it (``tile0``), sliced; a non-uniform chunk is its own trials. The
+        sums come from the mesh's twins when the scan shards
+        (``_shard_mesh``), else from the one-device path, under the same
+        pinned plan."""
         from crimp_tpu_torch.ops import search
+        from crimp_tpu_torch.parallel import mesh as pmesh
 
         faultinject.fire("scan_chunk")
         lo = i * self.chunk_trials
         chunk = self.freqs[lo:lo + self.chunk_trials]
         k = len(chunk)
         per_split = int(self._blocks[0])
-        dev = self.device
+        dev, mesh = self.device, self._shard_mesh
+        fdots, fddots = self._sum_rows()
         if not self._fastpath:
-            times = self._times_device()
-            if self.statistic == "h":
-                rows = search.h_power(times, chunk, self.nharm, poly=self.poly, device=dev,
-                                      per_split=per_split)[None, :]
-            elif self.fddots is not None:
-                rows = search.z2_power_3d(times, chunk, self.fdots, self.fddots, self.nharm, poly=self.poly,
-                                          device=dev, per_split=per_split).reshape(-1, k)
-            elif self._squeeze:
-                rows = search.z2_power(times, chunk, self.nharm, poly=self.poly, device=dev,
-                                       per_split=per_split)[None, :]
+            fdd = (0.0,) if fddots is None else fddots
+            if mesh is not None:
+                c, s = pmesh.general_sums_sharded(self.times, chunk, fdots, fdd, self.nharm, mesh, None, self.poly,
+                                                  per_split)
             else:
-                rows = search.z2_power_2d(times, chunk, self.fdots, self.nharm, poly=self.poly, device=dev,
-                                          per_split=per_split)
-            return rows
+                c, s = search.general_harmonic_sums(self._times_device(), chunk, fdots, fdd, self.nharm,
+                                                    poly=self.poly, device=dev, per_split=per_split)
+            return self._rows(c, s, slice(0, k))
         f0, df = self._grid
         tile = int(self._blocks[1])
         tile0 = lo // tile
@@ -327,32 +382,23 @@ class ResumableScan:
                                              device=dev, per_split=None if self._mxu else per_split,
                                              tile0=tile0)
             return rows[..., cut].reshape(-1, k)
-        kw = self._uniform_kw()
-        if self.fddots is not None:
-            rows = search.z2_power_3d_grid(self._times_device(), f0, df, n_cover, self.fdots, self.fddots,
-                                           self.nharm, device=dev, tile0=tile0, **kw)
-            return rows[..., cut].reshape(-1, k)
-        if self._stream():
-            skw = {"poly": self.poly, "mxu": self._mxu, "reseed": self._mxu_reseed, "mxu_bf16": self._mxu_bf16,
-                   "event_chunk": per_split, "tile0": tile0, "device": dev}
-            if self.statistic == "h":
-                rows = search.h_power_grid_streamed(self.times, f0, df, n_cover, self.nharm, **skw)[None, :]
-            elif self._squeeze:
-                rows = search.z2_power_grid_streamed(self.times, f0, df, n_cover, self.nharm, **skw)[None, :]
-            else:
-                rows = search.z2_power_2d_grid_streamed(self.times, f0, df, n_cover, self.fdots, self.nharm,
-                                                        **skw)
-            return rows[..., cut]
-        times = self._times_device()
-        if self.statistic == "h":
-            rows = search.h_power_grid(times, f0, df, n_cover, self.nharm, device=dev, tile0=tile0, **kw)[None, :]
-        elif self._squeeze:
-            rows = search.z2_power_grid(times, f0, df, n_cover, self.nharm, device=dev, tile0=tile0,
-                                        **kw)[None, :]
+        if mesh is not None:
+            c, s = pmesh.grid_sums_sharded(self.times, f0, df, n_cover, fdots, fddots, self.nharm, mesh,
+                                           self.poly, self._mxu, self._mxu_reseed, self._mxu_bf16,
+                                           None if self._mxu else per_split, tile0,
+                                           mxu_blocks=tuple(self._blocks) if self._mxu else None)
+        elif fddots is None and self._stream():
+            c, s = search.harmonic_sums_grid_streamed(self.times, f0, df, n_cover, self.nharm, fdots=fdots,
+                                                      poly=self.poly, mxu=self._mxu, reseed=self._mxu_reseed,
+                                                      mxu_bf16=self._mxu_bf16, event_chunk=per_split,
+                                                      tile0=tile0, device=dev)
         else:
-            rows = search.z2_power_2d_grid(times, f0, df, n_cover, self.fdots, self.nharm, device=dev,
-                                           tile0=tile0, **kw)
-        return rows[..., cut]
+            # the resilience ladder where the one-device wrapper has one:
+            # every statistic but the 2-D Z^2 (as in the JAX package)
+            ladder = self.statistic == "h" or self._squeeze or fddots is not None
+            c, s = search.harmonic_sums_3d_grid(self._times_device(), f0, df, n_cover, fdots, fddots, self.nharm,
+                                                device=dev, tile0=tile0, ladder=ladder, **self._uniform_kw())
+        return self._rows(c, s, cut)
 
     def _finish_chunk(self, i: int, rows_dev, parts, progress) -> None:
         """Bring one computed chunk to the host and checkpoint it atomically."""

@@ -67,6 +67,10 @@ MXU_EVENT_BLOCK = 1 << 15  # factorized path: events per f32 matmul block
 MXU_TRIAL_BLOCK = 256  # factorized path: trials per sweep matrix
 STREAM_EVENT_CHUNK = 1 << 21  # events per streamed host->device chunk
 STREAM_MIN_EVENTS_DEFAULT = 1 << 22
+# Below this many (trial, event) pairs the shards' launches and the ordered
+# reduce of a sharded dispatch outweigh the parallel win (PeriodSearch._mesh);
+# JAX's threshold.
+MIN_SHARD_PAIRS = 1 << 22
 _FROM_ENV = object()
 
 
@@ -168,7 +172,7 @@ def z2_from_sums(c_sum, s_sum, n_events):
     return (c_sum**2 + s_sum**2) * (2.0 / n_events)
 
 
-def _h_from_sums(c_sum, s_sum, n_events, dim: int):
+def h_from_sums(c_sum, s_sum, n_events, dim: int):
     """H-test from trig sums whose harmonic axis is ``dim``."""
     z2_cum = torch.cumsum(z2_from_sums(c_sum, s_sum, n_events), dim=dim)
     shape = [1] * z2_cum.dim()
@@ -193,14 +197,14 @@ def uniform_grid(freqs: np.ndarray, rtol: float = 1e-12):
     return float(f[0]), float(df)
 
 
-def _f64(x, dev: torch.device) -> torch.Tensor:
+def as_f64(x, dev: torch.device) -> torch.Tensor:
     """A contiguous 1-D f64 tensor of ``x`` (numpy, list or tensor) on ``dev``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=torch.float64).reshape(-1).contiguous()
     return torch.as_tensor(np.asarray(x, dtype=np.float64).reshape(-1)).to(dev)
 
 
-def _weights(weights, dev: torch.device):
+def as_weights(weights, dev: torch.device):
     if weights is None:
         return None
     if isinstance(weights, torch.Tensor):
@@ -208,10 +212,10 @@ def _weights(weights, dev: torch.device):
     return torch.as_tensor(np.asarray(weights, dtype=np.float32).reshape(-1)).to(dev)
 
 
-def _row_coeffs(fdots, fddots, dev: torch.device):
+def row_coeffs(fdots, fddots, dev: torch.device):
     """(0.5*fdot, fdd/6 or None) in f64, as the JAX kernels form them."""
-    half = _f64(0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1), dev)
-    sixth = None if fddots is None else _f64(np.asarray(fddots, dtype=np.float64).reshape(-1) / 6.0, dev)
+    half = as_f64(0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1), dev)
+    sixth = None if fddots is None else as_f64(np.asarray(fddots, dtype=np.float64).reshape(-1) / 6.0, dev)
     return half, sixth
 
 
@@ -220,7 +224,7 @@ def _row_coeffs(fdots, fddots, dev: torch.device):
 # ---------------------------------------------------------------------------
 
 
-def _tiles_to_freqs(cs: torch.Tensor, n_freq: int) -> torch.Tensor:
+def tiles_to_freqs(cs: torch.Tensor, n_freq: int) -> torch.Tensor:
     """K2's (2, [n_fddot,] n_fdot, n_tiles, nharm, T) f32 sums ->
     (2, n_fddot, n_fdot, nharm, n_freq) f64."""
     if cs.dim() == 5:
@@ -238,20 +242,20 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
     launch plan (``per_split``) resolves through ``autotune.resolve_blocks``
     under the family ``plan`` when not given; ``tile0`` offsets the grid by
     whole trial tiles. The launch is the kernel span and cost row ``site``."""
-    half, sixth = _row_coeffs(fdots, fddots, t.device)
+    half, sixth = row_coeffs(fdots, fddots, t.device)
     n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
     n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
     if per_split is None:
         per_split, _ = autotune.resolve_blocks(plan, t.shape[0], int(n_freq) * n_rows, poly,
                                                n_rows=n_rows, nharm=nharm, device=t.device)
-    w = _weights(weights, t.device)
+    w = as_weights(weights, t.device)
     with costmodel.kernel_span(site):
         cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, weights=w,
                                   poly=poly, per_split=per_split, tile0=tile0)
     costmodel.capture(site, z2_grid.z2_tile_sums, t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth,
                       weights=w, poly=poly, per_split=per_split, tile0=tile0, out=cs,
                       counts=lambda: costmodel.k2_counts(t.shape[0], int(n_freq), n_rows, nharm, cs, weights=w))
-    return _tiles_to_freqs(cs, n_freq)
+    return tiles_to_freqs(cs, n_freq)
 
 
 def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
@@ -278,7 +282,7 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
     taken down the ladder: it propagates."""
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
-    t = _f64(times, resolve_device(device))
+    t = as_f64(times, resolve_device(device))
     n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
     cube = fddots is not None
     use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16, t.shape[0],
@@ -360,7 +364,7 @@ def h_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 20, devi
                  **kw) -> torch.Tensor:
     """H-test over the uniform grid f0 + j*df -> (n_freq,) f64."""
     c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, [0.0], None, nharm, device=device, **kw)
-    return _h_from_sums(c[0, 0], s[0, 0], n, dim=0)
+    return h_from_sums(c[0, 0], s[0, 0], n, dim=0)
 
 
 def z2_power_2d_grid(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
@@ -385,7 +389,7 @@ def h_power_3d_grid(times, f0: float, df: float, n_freq: int, fdots, fddots, nha
     """H-test over the cube -> (n_fddot, n_fdot, n_freq) f64."""
     c, s, n = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, device=device,
                                     **kw)
-    return _h_from_sums(c, s, n, dim=2)
+    return h_from_sums(c, s, n, dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +502,7 @@ def _mxu_block(t, w, f_tiles, half, sixth, df: float, nharm: int, trial_block: i
                                    csw, ssw, nharm, mxu_bf16)
 
 
-class _MxuCarry:
+class MxuCarry:
     """The factorized path's f64 running sums over event blocks, fed in
     block order by the monolithic and the streamed drivers alike."""
 
@@ -512,7 +516,7 @@ class _MxuCarry:
         # f0 + (tile*TB)*df: the association of the JAX factorized kernels
         self.f_tiles = f0 + ((torch.arange(self.n_tiles, dtype=torch.float64, device=device) + tile0)
                              * self.trial_block) * df
-        self.half, self.sixth = _row_coeffs(fdots, fddots, device)
+        self.half, self.sixth = row_coeffs(fdots, fddots, device)
         self.shape = (1 if fddots is None else self.sixth.shape[0], self.half.shape[0])
         self.c = self.s = None
 
@@ -539,9 +543,9 @@ class _MxuCarry:
 
 def _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16,
                    event_block: int = MXU_EVENT_BLOCK, trial_block: int = MXU_TRIAL_BLOCK, tile0: int = 0):
-    carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, t.device,
+    carry = MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, t.device,
                       event_block, trial_block, tile0)
-    carry.feed(t, _weights(weights, t.device))
+    carry.feed(t, as_weights(weights, t.device))
     return carry.result()
 
 
@@ -551,7 +555,7 @@ def harmonic_sums_uniform_mxu(times, f0: float, df: float, n_freq: int, nharm: i
                               weights=None, poly: bool = True, reseed: int = GRID_MXU_RESEED,
                               mxu_bf16: bool = False, device=None):
     """Factorized 1-D grid sums -> (nharm, n_freq) f64 each."""
-    t = _f64(times, resolve_device(device))
+    t = as_f64(times, resolve_device(device))
     c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, [fdot], None, nharm, poly, reseed, mxu_bf16,
                           event_block, trial_block)
     return c[0, 0], s[0, 0]
@@ -563,7 +567,7 @@ def harmonic_sums_uniform_2d_mxu(times, f0: float, df: float, n_freq: int, fdots
                                  poly: bool = True, reseed: int = GRID_MXU_RESEED,
                                  mxu_bf16: bool = False, device=None):
     """Factorized (fdot x frequency) grid sums -> (n_fdot, nharm, n_freq) f64 each."""
-    t = _f64(times, resolve_device(device))
+    t = as_f64(times, resolve_device(device))
     c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, None, nharm, poly, reseed, mxu_bf16,
                           event_block, trial_block)
     return c[0], s[0]
@@ -575,7 +579,7 @@ def harmonic_sums_uniform_3d_mxu(times, f0: float, df: float, n_freq: int, fdots
                                  poly: bool = True, reseed: int = GRID_MXU_RESEED,
                                  mxu_bf16: bool = False, device=None):
     """Factorized cube sums -> (n_fddot, n_fdot, nharm, n_freq) f64 each."""
-    t = _f64(times, resolve_device(device))
+    t = as_f64(times, resolve_device(device))
     return _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed,
                           mxu_bf16, event_block, trial_block)
 
@@ -642,14 +646,14 @@ def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
     chunk = max(unit, chunk // unit * unit)
     plan = _stream_chunks(host.shape[0], chunk)
     if mxu:
-        carry = _MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, dev, tile0=tile0)
+        carry = MxuCarry(f0, df, n_freq, fdots, fddots, nharm, poly, reseed, mxu_bf16, dev, tile0=tile0)
         with costmodel.kernel_span("grid_sums_streamed"):
             for t in _device_chunks(host, plan, dev):
                 carry.feed(t, None)
         return carry.result()
     if nharm > z2_grid.MAX_NHARM:
         raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}")
-    half, sixth = _row_coeffs(fdots, fddots, dev)
+    half, sixth = row_coeffs(fdots, fddots, dev)
     n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
     acc = None
     n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
@@ -661,8 +665,16 @@ def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
     costmodel.capture("grid_sums_streamed", z2_grid.z2_tile_sums, host, f0, df, half, n_tiles, nharm,
                       sixth_fddots=sixth, poly=poly, per_split=chunk, tile0=tile0, out=acc,
                       counts=lambda: costmodel.k2_counts(host.shape[0], int(n_freq), n_rows, nharm, acc))
-    cs = _tiles_to_freqs(acc, n_freq)
+    cs = tiles_to_freqs(acc, n_freq)
     return cs[0], cs[1]
+
+
+def harmonic_sums_grid_streamed(times, f0: float, df: float, n_freq: int, nharm: int, device=None, **kw):
+    """The streamed grid's f64 trig sums (c, s), each (n_fddot, n_fdot,
+    nharm, n_freq), bitwise the in-core grid's at the same split length
+    (``event_chunk``); keywords as the streamed wrappers (poly, fdots,
+    fddots, event_chunk, mxu, reseed, mxu_bf16, tile0)."""
+    return _streamed_uniform_sums(times, f0, df, n_freq, nharm, device=device, **kw)
 
 
 def z2_power_grid_streamed(times, f0: float, df: float, n_freq: int, nharm: int = 2,
@@ -676,7 +688,7 @@ def h_power_grid_streamed(times, f0: float, df: float, n_freq: int, nharm: int =
                           device=None, **kw) -> torch.Tensor:
     """h_power_grid with double-buffered host->device event streaming."""
     c, s = _streamed_uniform_sums(times, f0, df, n_freq, nharm, device=device, **kw)
-    return _h_from_sums(c[0, 0], s[0, 0], np.shape(times)[0], dim=0)
+    return h_from_sums(c[0, 0], s[0, 0], np.shape(times)[0], dim=0)
 
 
 def z2_power_2d_grid_streamed(times, f0: float, df: float, n_freq: int, fdots, nharm: int = 2,
@@ -708,8 +720,8 @@ def general_harmonic_sums(times, freqs, fdots=(0.0,), fddots=(0.0,), nharm: int 
     under "general"); each trial's sums depend on it and on nothing else of
     the grid. The launch is the kernel span and cost row "general_sums"."""
     dev = resolve_device(device)
-    half, sixth = _row_coeffs(fdots, fddots, dev)
-    t, f = _f64(times, dev), _f64(freqs, dev)
+    half, sixth = row_coeffs(fdots, fddots, dev)
+    t, f = as_f64(times, dev), as_f64(freqs, dev)
     n_rows = half.shape[0] * sixth.shape[0]
     if per_split is None:
         per_split, _ = autotune.resolve_blocks("general", t.shape[0], f.shape[0] * n_rows, poly,
@@ -744,7 +756,7 @@ def h_power(times, freqs, nharm: int = 20, trig_dtype: torch.dtype = torch.float
             poly: bool = False, device=None, per_split: int | None = None) -> torch.Tensor:
     """H-test at each frequency: max_m (cumsum Z^2_m - 4(m-1)) -> (n_freq,)."""
     c, s = harmonic_sums_1d(times, freqs, nharm, trig_dtype, poly, device, per_split)
-    return _h_from_sums(c, s, np.shape(times)[0], dim=0)
+    return h_from_sums(c, s, np.shape(times)[0], dim=0)
 
 
 def z2_power_2d(times, freqs, fdots, nharm: int = 2, trig_dtype: torch.dtype = torch.float32,
@@ -777,7 +789,7 @@ def h_power_segments(times, masks, freqs, nharm: int = 5, device=None) -> torch.
     m = torch.as_tensor(np.asarray(masks)).to(dev).to(torch.float64)
     f = torch.as_tensor(np.asarray(freqs, dtype=np.float64)).to(dev)
     c, s = _harmonic_sums_cycles(f[:, None] * t, m, nharm)  # (nharm, S)
-    return _h_from_sums(c, s, torch.sum(m, dim=-1), dim=0)
+    return h_from_sums(c, s, torch.sum(m, dim=-1), dim=0)
 
 
 def h_power_segments_chunked(times, masks, freqs, nharm: int = 5, row_block: int | None = None,
@@ -810,7 +822,10 @@ class PeriodSearch:
     ``use_grid_fastpath=False``; everything else through K3. ``poly_trig``
     picks the polynomial sin/cos (None: polynomial, the port's choice, as K2
     and the Pallas kernel do) or f32 sin/cos. Runs on ``device`` (default
-    cuda).
+    cuda). From ``MIN_SHARD_PAIRS`` (trial, event) pairs on, a job with
+    several devices of that type shards the scan through
+    ``parallel.mesh``'s twins (``auto_mesh``; ``CRIMP_TORCH_SHARD=0`` opts
+    out); one card never shards.
     """
 
     def __init__(self, time, freq, nbrHarm: int = 2, use_grid_fastpath: bool | None = None,
@@ -838,7 +853,25 @@ class PeriodSearch:
     def _kw(self) -> dict:
         return {"poly": self._poly(), "device": self.device}
 
+    def _mesh(self, n_pairs: int | None = None):
+        """Device mesh for auto-sharding, or None for the single-device path."""
+        if n_pairs is None:
+            n_pairs = len(self.time) * len(self.freq)
+        if n_pairs < MIN_SHARD_PAIRS:
+            return None
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.auto_mesh(device=self.device)
+
+    def _sharded_kw(self) -> dict:
+        return {"use_fastpath": self.use_grid_fastpath, "poly": self._poly()}
+
     def ztest(self) -> np.ndarray:
+        mesh = self._mesh()
+        if mesh is not None:
+            from crimp_tpu_torch.parallel import mesh as pmesh
+
+            return pmesh.z2_sharded(self._centered(), self.freq, self.nbrHarm, mesh, **self._sharded_kw())
         grid = self._grid()
         if grid is not None:
             power = z2_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
@@ -847,6 +880,11 @@ class PeriodSearch:
         return power.cpu().numpy()
 
     def htest(self) -> np.ndarray:
+        mesh = self._mesh()
+        if mesh is not None:
+            from crimp_tpu_torch.parallel import mesh as pmesh
+
+            return pmesh.h_sharded(self._centered(), self.freq, self.nbrHarm, mesh, **self._sharded_kw())
         grid = self._grid()
         if grid is not None:
             power = h_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
@@ -862,16 +900,22 @@ class PeriodSearch:
         """
         log_fdots = np.asarray(freq_dot, dtype=np.float64)
         signed = -(10.0**log_fdots)
+        mesh = self._mesh(len(self.time) * len(self.freq) * len(signed))
         grid = self._grid()
-        if grid is not None:
+        if mesh is not None:
+            from crimp_tpu_torch.parallel import mesh as pmesh
+
+            power = pmesh.z2_2d_sharded(self._centered(), self.freq, signed, self.nbrHarm, mesh,
+                                        **self._sharded_kw())
+        elif grid is not None:
             power = z2_power_2d_grid(self._centered(), *grid, len(self.freq), signed, self.nbrHarm,
-                                     **self._kw())
+                                     **self._kw()).cpu().numpy()
         else:
-            power = z2_power_2d(self._centered(), self.freq, signed, self.nbrHarm, **self._kw())
+            power = z2_power_2d(self._centered(), self.freq, signed, self.nbrHarm, **self._kw()).cpu().numpy()
         rows = np.column_stack([
             np.tile(self.freq, len(log_fdots)),
             np.repeat(log_fdots, len(self.freq)),
-            power.cpu().numpy().reshape(-1),
+            power.reshape(-1),
         ])
         table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Z2pow": rows[:, 2]}
         return rows, table
@@ -883,7 +927,7 @@ class PeriodSearch:
             np.tile(self.freq, len(log_fdots) * len(fdd)),
             np.tile(np.repeat(log_fdots, len(self.freq)), len(fdd)),
             np.repeat(fdd, len(self.freq) * len(log_fdots)),
-            power.cpu().numpy().reshape(-1),
+            np.asarray(power).reshape(-1),
         ])
         table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Freq_ddot": rows[:, 2],
                  "Z2pow": rows[:, 3]}
@@ -899,13 +943,19 @@ class PeriodSearch:
         log_fdots = np.asarray(freq_dot, dtype=np.float64)
         signed = -(10.0**log_fdots)
         fdd = np.asarray(freq_ddot, dtype=np.float64)
+        mesh = self._mesh(len(self.time) * len(self.freq) * len(signed) * len(fdd))
         grid = self._grid()
-        if grid is not None:
+        if mesh is not None:
+            from crimp_tpu_torch.parallel import mesh as pmesh
+
+            power = pmesh.z2_3d_sharded(self._centered(), self.freq, signed, fdd, self.nbrHarm, mesh,
+                                        **self._sharded_kw())
+        elif grid is not None:
             power = z2_power_3d_grid(self._centered(), *grid, len(self.freq), signed, fdd,
-                                     self.nbrHarm, **self._kw())
+                                     self.nbrHarm, **self._kw()).cpu().numpy()
         else:
             power = z2_power_3d(self._centered(), self.freq, signed, fdd, self.nbrHarm,
-                                **self._kw())
+                                **self._kw()).cpu().numpy()
         return self._threed_rows(log_fdots, fdd, power)
 
     def semicoherent_ztest(self, freq_dot, freq_ddot, n_segments: int):
@@ -927,4 +977,4 @@ class PeriodSearch:
         power = semicoherent.semicoherent_z2_grid(
             self._centered(), *grid, len(self.freq), signed, fdd, nharm=self.nbrHarm,
             n_segments=int(n_segments), **self._kw())
-        return self._threed_rows(log_fdots, fdd, power)
+        return self._threed_rows(log_fdots, fdd, power.cpu().numpy())

@@ -105,15 +105,26 @@ def semicoherent_z2_grid(times, f0, df, n_freq, fdots, fddots, nharm: int = 2,
     ``stack="incoherent"`` (the semi-coherent statistic) sums per-segment
     Z^2, each normalized by its own event count, in fixed segment order;
     ``stack="coherent"`` sums the trig sums first (the monolithic coherent
-    statistic up to reduction order). ``mesh`` (segment sharding) needs the
-    port's parallel layer and raises NotImplementedError.
+    statistic up to reduction order). An explicit ``mesh`` (a 1-D segment
+    mesh, ``parallel.mesh.segment_mesh``) routes the incoherent stack
+    through ``parallel.mesh.semicoherent_stack_sharded`` on K2, as in JAX:
+    the segment rows padded with inert zero rows to a multiple of the mesh
+    size, each shard's segments summed in order, then the shards in order,
+    under the loop's launch plan; reduction-order tolerance against the
+    loop, bitwise with one segment a shard.
     """
     if stack not in ("incoherent", "coherent"):
         raise ValueError(f"unknown stack mode {stack!r}")
-    if mesh is not None:
-        raise NotImplementedError("segment-sharded stacks need crimp_tpu_torch.parallel, "
-                                  "which is not ported yet")
     seg_times, seg_weights = split_segments(times, n_segments)
+    if mesh is not None and stack == "incoherent":
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        pad = (-len(seg_times)) % int(mesh.size)
+        if pad:
+            seg_times = np.pad(seg_times, ((0, pad), (0, 0)))
+            seg_weights = np.pad(seg_weights, ((0, pad), (0, 0)))
+        return pmesh.semicoherent_stack_sharded(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nharm,
+                                                mesh, poly=poly, per_split=per_split, tile0=tile0)
     c, s, counts = stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nharm,
                                      poly, mxu, reseed, mxu_bf16, device, per_split, tile0)
     if stack == "coherent":

@@ -29,8 +29,10 @@ batched over (segment, phase).
 on bf16-rounded operands with f32 accumulation (a plain ``torch.matmul``,
 as JAX leaves it to XLA outside any kernel); off by default. The host
 wrappers fill the auto (-1) knobs through ``autotune.resolve_toafit``
-(``resolve_runtime_cfg``). The mesh part of the JAX ``fit_toas_batch_auto``
-waits for the port's parallel layer.
+(``resolve_runtime_cfg``). ``fit_toas_batch_auto`` shards the segment
+axis over a segment mesh when the job has several devices of the call's
+type (``parallel.mesh``; ``CRIMP_TORCH_SHARD=0`` opts out), or over the mesh
+its caller passes.
 """
 
 from __future__ import annotations
@@ -666,18 +668,53 @@ def resolve_runtime_cfg(cfg: ToAFitConfig, n_segments: int = 1, n_events: int = 
 
 
 def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
-                        cfg: ToAFitConfig, device=None) -> dict:
-    """Single-device ``fit_toas_batch`` on host arrays, numpy results."""
+                        cfg: ToAFitConfig, device=None, mesh=None) -> dict:
+    """``fit_toas_batch`` on host arrays, numpy results, with the SEGMENT
+    axis sharded across devices when it helps.
+
+    With ``mesh`` (a ``parallel.mesh.segment_mesh``), or on a job with
+    several devices of ``device``'s type (``CRIMP_TORCH_SHARD=0`` opts
+    out), and at least as many segments as shards, the batch is padded to a
+    multiple of the shard count with fully masked segments (exposure 1),
+    dropped from the result, and each shard fits its block of rows on its
+    device, with no communication. A block's event sums round with the rows
+    beside it (``ops/reduce.event_sum``), so a sharded fit agrees with the
+    one-batch fit to that rounding. Otherwise one batch on ``device``."""
+    from crimp_tpu_torch.parallel import mesh as pmesh
+
     phases = np.asarray(phases, dtype=float)
-    if phases.shape[0] == 0:
+    n_seg = phases.shape[0]
+    if n_seg == 0:
         return {}
-    obs.counter_add("toas_fit", phases.shape[0])
+    obs.counter_add("toas_fit", n_seg)
     masks, exposures = np.asarray(masks, dtype=bool), np.asarray(exposures, dtype=float)
-    cfg = resolve_runtime_cfg(cfg, phases.shape[0], phases.shape[1], device=device)
+    dev = resolve_device(device)
+    cfg = resolve_runtime_cfg(cfg, n_seg, phases.shape[1], device=dev)
+    if mesh is None and pmesh.sharding_enabled():
+        local = [d for d in pmesh.available_devices() if d.type == dev.type]
+        if len(local) >= 2:
+            mesh = pmesh.segment_mesh(local)
+    if mesh is None or n_seg < mesh.size:
+        with costmodel.kernel_span("toa_fit_batch"):
+            out = fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=dev)
+        costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    from crimp_tpu_torch.parallel import registry
+
+    pad = pmesh.pad_batch_for_mesh(n_seg, mesh)
+    if pad:
+        phases = np.concatenate([phases, np.zeros((pad,) + phases.shape[1:])])
+        masks = np.concatenate([masks, np.zeros((pad,) + masks.shape[1:], dtype=masks.dtype)])
+        exposures = np.concatenate([exposures, np.ones(pad)])
     with costmodel.kernel_span("toa_fit_batch"):
-        out = fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=device)
-    costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg)
-    return {k: v.cpu().numpy() for k, v in out.items()}
+        parts = pmesh.map_blocks(
+            lambda slot, ph, mk, ex: fit_toas_batch(kind, tpl, ph, mk, ex, cfg, device=slot.device),
+            pmesh.shard_segments(phases, mesh), pmesh.shard_segments(masks, mesh),
+            pmesh.shard_segments(exposures, mesh))
+    out = {k: np.concatenate([p[k].cpu().numpy() for p in parts])[:n_seg] for k in parts[0]}
+    costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg,
+                      out=list(out.values()), plan=registry.specs_for("segment_batch", mesh))
+    return out
 
 
 def slice_sorted_intervals(times, starts, ends, assume_sorted: bool = False) -> list[np.ndarray]:

@@ -251,7 +251,8 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"probe: unsupported device {x.device}")
     out = torch.empty((), dtype=torch.float32, device=x.device)
-    rc = _lib().z2_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x))
+    with torch.cuda.device(x.device):
+        rc = _lib().z2_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x))
     check_launch(rc, "z2_probe")
     LAUNCHES["probe"] += 1
     return out
@@ -261,7 +262,8 @@ def empty_launch(device: torch.device) -> None:
     """Launch a kernel that does nothing, through the same ctypes path as
     the probe: the floor under any launch's time. Not a port of anything,
     so not counted in ``LAUNCHES``."""
-    check_launch(_lib().z2_empty(torch.cuda.current_stream(device).cuda_stream), "z2_empty")
+    with torch.cuda.device(device):
+        check_launch(_lib().z2_empty(torch.cuda.current_stream(device).cuda_stream), "z2_empty")
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +353,7 @@ def _check_f64_vector(x: torch.Tensor, name: str, device: torch.device) -> None:
 def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Tensor,
                  n_tiles: int, nharm: int, *, sixth_fddots: torch.Tensor | None = None,
                  weights: torch.Tensor | None = None, poly: bool = True,
-                 per_split: int | None = None, tile0: int = 0) -> torch.Tensor:
+                 per_split: int | None = None, tile0: int = 0, splits: bool = False) -> torch.Tensor:
     """f32 trig sums over the grid f0 + ((tile0 + tile)*TRIAL_TILE + j_lo)*df for each
     fdot row, (2, n_fdot, n_tiles, nharm, TRIAL_TILE), or for each (fddot,
     fdot) row of the cube, (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE),
@@ -363,7 +365,11 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     ``per_split`` fixes the event split length (a multiple of EVENT_CHUNK;
     default: enough splits to fill the card); ``tile0`` > 0 computes the
     tiles [tile0, tile0 + n_tiles) of the grid that starts at ``f0``, the
-    same bits as those tiles of one call over the whole grid.
+    same bits as those tiles of one call over the whole grid. With
+    ``splits`` the per-split partial sums come back unreduced, stacked on a
+    leading split axis (one entry for a single split): the sharded twins
+    add them across event shards in split order, as the kernel's reduce
+    adds them.
     """
     if times.dtype != torch.float64 or times.dim() != 1 or not times.is_contiguous():
         raise ValueError("z2_tile_sums takes contiguous 1-D float64 times")
@@ -388,6 +394,13 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     if times.shape[0] >= 2**31 - EVENT_CHUNK:
         raise ValueError("z2_tile_sums indexes events with 32-bit ints")
     if times.device.type == "cpu":
+        if splits:
+            step = times.shape[0] if per_split is None else per_split
+            return torch.stack([
+                z2_tile_sums_reference(times[e0:e0 + step], f0, df, half_fdots, n_tiles, nharm,
+                                       sixth_fddots=sixth_fddots, poly=poly, tile0=tile0,
+                                       weights=None if weights is None else weights[e0:e0 + step])
+                for e0 in range(0, times.shape[0], step)])
         return z2_tile_sums_reference(times, f0, df, half_fdots, n_tiles, nharm,
                                       sixth_fddots=sixth_fddots, weights=weights, poly=poly,
                                       per_split=per_split, tile0=tile0)
@@ -404,7 +417,7 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
                if n_split > 1 else out)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib, stream = _lib(), stream_of(times)
-    with profiling.launch_window():
+    with profiling.launch_window(times.device):
         rc = lib.z2_grid_sums(
             times.data_ptr(), n, float(f0), float(TRIAL_TILE * df), float(df),
             half_fdots.data_ptr(), n_fdot, ptr(sixth_fddots), n_fddot, ptr(weights),
@@ -413,6 +426,9 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
         )
     check_launch(rc, "z2_grid_sums")
     LAUNCHES["z2_tile_sums"] += 1
+    if splits:
+        stacked = partial if n_split > 1 else out[None]
+        return stacked[:, :, 0] if sixth_fddots is None else stacked
     return out[:, 0] if sixth_fddots is None else out
 
 

@@ -127,9 +127,6 @@ class ServingEngine:
                  breakers: breaker_mod.RungBreakers | None = None, phShiftRes: int = 1000, nbrBins: int = 15,
                  varyAmps: bool = False, mesh=None, warm_batch: int | None = None,
                  prep_overlap: bool | None = None, device=None):
-        if mesh is not None:
-            raise NotImplementedError("ServingEngine(mesh=): the port serves on one device; "
-                                      "multi-device serving comes with parallel/")
         self.device = resolve_device(device)
         self.queue = queue if queue is not None else AdmissionQueue()
         self.scheduler = scheduler if scheduler is not None else scheduler_mod.DeadlineScheduler()
@@ -148,9 +145,26 @@ class ServingEngine:
         self._verdicts: dict | None = None  # the verdict cache, read on first use
         self._closed = False
         self.counts = {"ok": 0, "degraded": 0, "error": 0, "deadline_miss": 0, "steps": 0}
+        # capacity note: the (optionally multi-process) mesh the engine
+        # serves on, for stats(); the dispatch paths keep routing through the
+        # multisource engine's own mesh selection, so passing a mesh never
+        # changes a result
+        self.mesh = mesh
+        self.capacity = self._capacity_note(mesh, self.device)
+
+    @staticmethod
+    def _capacity_note(mesh, device) -> dict:
+        """The serving capacity: the process identity, the device, and with a
+        mesh its shard count and axes (else one device and no axes), so a
+        multi-process deployment's stats say which part of the fleet this
+        engine fronts."""
         pidx, pcount = multihost.process_identity()
-        self.capacity = {"process_index": pidx, "process_count": pcount, "devices": 1, "mesh_axes": None,
-                         "device": str(self.device)}
+        note = {"process_index": pidx, "process_count": pcount, "devices": 1, "mesh_axes": None,
+                "device": str(device)}
+        if mesh is not None:
+            note["devices"] = int(mesh.size)
+            note["mesh_axes"] = {str(a): int(mesh.shape[a]) for a in mesh.axis_names}
+        return note
 
     # -- lifecycle ----------------------------------------------------------
 

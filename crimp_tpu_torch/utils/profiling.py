@@ -11,9 +11,12 @@ Port of ``crimp_tpu/utils/profiling.py``:
   no synchronization. The host time of an asynchronous launch would read
   microseconds for a kernel that runs for milliseconds. When the block
   launches a hand kernel, whose wrapper marks its launch with
-  ``launch_window()``, the events bracket the launches themselves (the
-  first one's start to the last one's end), not the wrapper's host work
-  before them. On an idle card such a span still holds the launch latency.
+  ``launch_window(device)``, the events bracket the launches themselves
+  (the first one's start to the last one's end), not the wrapper's host
+  work before them. A block whose launches went to several cards (the
+  shards of a mesh over distinct cards) keeps one such pair a card, and
+  its span is the longest card's window (``CardWindows``). On an idle
+  card such a span still holds the launch latency.
   A roofline measurement that wants the kernel's device time alone asks
   for ``primed_launches()``; a plain obs run never primes, so the flight
   recorder adds no device work to the timeline it records. Off the card it
@@ -92,7 +95,7 @@ def timed(name: str, sync=None):
     if _card_stream_live():
         events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         events[0].record()
-        outer, slot = getattr(_LAUNCH, "slot", None), {"start": None, "end": None, "primed": False}
+        outer, slot = getattr(_LAUNCH, "slot", None), {"windows": {}, "primed": False}
         _LAUNCH.slot = slot
     t0 = time.perf_counter()
     error = None
@@ -108,8 +111,11 @@ def timed(name: str, sync=None):
         if events is not None:
             events[1].record()
             _LAUNCH.slot = outer
-            if slot["start"] is not None:
-                events = (slot["start"], slot["end"])
+            windows = list(slot["windows"].values())
+            if len(windows) == 1:
+                events = tuple(windows[0])
+            elif windows:
+                events = (CardWindows(windows),) * 2
             if slot["primed"]:
                 attrs["primed"] = True
             _keep(name, events)
@@ -158,26 +164,53 @@ def primed_launches():
 
 
 @contextlib.contextmanager
-def launch_window():
-    """Mark a hand kernel's launch (its wrapper wraps the C call): inside a
-    ``timed`` block on this thread, CUDA events around the launch become the
-    block's span bounds; free otherwise. Under ``primed_launches()`` a spin
-    kernel goes ahead of the start event."""
-    slot = getattr(_LAUNCH, "slot", None)
-    if slot is None:
+def launch_window(device=None):
+    """Mark a hand kernel's launch on ``device`` (its wrapper wraps the C
+    call, and passes its tensors' device): the block runs with ``device``
+    current, so the launch, and any device state the C entry sets (a
+    kernel's shared-memory attribute), goes to that card and its current
+    stream whatever card the caller has current, as for a shard of a mesh
+    over several cards (None: the current card). Inside a
+    ``timed`` block on this thread, CUDA events around the launch, on that
+    card, become the block's span bounds for the card; free otherwise.
+    Under ``primed_launches()`` a spin kernel goes ahead of the start
+    event."""
+    with contextlib.nullcontext() if device is None else torch.cuda.device(device):
+        slot = getattr(_LAUNCH, "slot", None)
+        if slot is None:
+            yield
+            return
+        if getattr(_PRIMED, "on", False):
+            torch.cuda._sleep(PRIME_CYCLES)
+            slot["primed"] = True
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
         yield
-        return
-    if getattr(_PRIMED, "on", False):
-        torch.cuda._sleep(PRIME_CYCLES)
-        slot["primed"] = True
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
-    if slot["start"] is None:
-        slot["start"] = start
-    slot["end"] = end
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        card = None if device is None else torch.cuda.current_device()
+        slot["windows"].setdefault(card, [start, end])[1] = end
+
+
+class CardWindows:
+    """The launch windows of a timed block whose launches went to several
+    cards, one (first start, last end) event pair a card. It stands for
+    both events of the block's span: its elapsed time is the longest card's
+    window (the cards run at once, so the block lasts as long as its
+    slowest card), and it has completed when every card's end has."""
+
+    def __init__(self, pairs):
+        self.pairs = [tuple(p) for p in pairs]
+
+    def query(self) -> bool:
+        return all(end.query() for _, end in self.pairs)
+
+    def synchronize(self) -> None:
+        for _, end in self.pairs:
+            end.synchronize()
+
+    def elapsed_time(self, _end=None) -> float:
+        return max(start.elapsed_time(end) for start, end in self.pairs)
 
 
 def _seconds(entry) -> float:

@@ -22,9 +22,13 @@ the engine's delta mode must lie within 1e-8 cycles of an exact fold. K3
 launched at an explicit split length equal to its static plan must equal the
 default call bit for bit; a kernel span timed by CUDA events must lie within
 5% of the synchronized wall time of a ~90 ms K2 call; K2 at a tile offset
-must give the whole grid's tiles bit for bit.
+must give the whole grid's tiles bit for bit. On two or more cards, the
+sharded twins over distinct cards must give the bits of the same layout
+on shards of one card, their kernel spans must resolve, and a large scan
+must auto-shard over the cards within K2's tolerance of the opt-out.
 """
 
+import json
 import pathlib
 
 import numpy as np
@@ -687,3 +691,173 @@ class TestMeasuringLayerOnCard:
         part = search.z2_power_grid(t, f0, df, 1000 - 768 + 500, 2, device=cuda_device, per_split=50176,
                                     tile0=3)[1000 - 768:]
         assert torch.equal(part, whole[1000:1500])
+
+
+@pytest.mark.gpu
+class TestParallelOnCard:
+    """The sharded twins on shards of one card (``virtual_devices``): every
+    shard launches its hand kernel; trial shards and event shards of whole
+    splits of the monolithic plan are the monolithic call's bits, other
+    layouts within the kernel twin's tolerance; the refold bitwise; the
+    native reader reads the pure bits."""
+
+    SPLIT = 1 << 16  # 200 000 events: 4 splits
+
+    def test_k2_whole_splits_and_trial_shards_bitwise(self, cuda_device):
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        t = _pulsed(200000)
+        freqs = np.linspace(0.2490, 0.2510, 1500)
+        fdots = np.array([-1e-13, 0.0])
+        f0, df = search.uniform_grid(freqs)
+        mono = search.z2_power_2d_grid(t, f0, df, freqs.size, fdots, 2, per_split=self.SPLIT,
+                                       device=cuda_device).cpu().numpy()
+        with pmesh.virtual_devices(["cuda:0"] * 4):
+            for ev in (4, 2, 1):
+                z2_grid.reset_launches()
+                got = pmesh.z2_2d_sharded(t, freqs, fdots, 2, pmesh.build_mesh(event_parallel=ev), poly=True,
+                                          per_split=self.SPLIT)
+                assert z2_grid.LAUNCHES["z2_tile_sums"] == 4, ev
+                assert np.array_equal(got, mono), ev
+            # the default plan on the whole problem: fewer splits than shards
+            default = search.z2_power_2d_grid(t, f0, df, freqs.size, fdots, 2, device=cuda_device).cpu().numpy()
+            got = pmesh.z2_2d_sharded(t, freqs, fdots, 2, pmesh.build_mesh(event_parallel=4), poly=True)
+        np.testing.assert_allclose(got, default, rtol=2e-3, atol=0.05)
+        assert int(np.argmax(got)) == int(np.argmax(default))
+
+    def test_k3_whole_splits_bitwise_and_refold(self, cuda_device):
+        from crimp_tpu_torch.ops import deltafold
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        t = _pulsed(200000)
+        freqs = np.geomspace(0.2490, 0.2510, 3000)
+        mono = search.z2_power(t, freqs, 2, poly=True, per_split=self.SPLIT, device=cuda_device).cpu().numpy()
+        with pmesh.virtual_devices(["cuda:0"] * 4):
+            z2_general.reset_launches()
+            got = pmesh.z2_sharded(t, freqs, 2, pmesh.build_mesh(event_parallel=2), poly=True, use_fastpath=False,
+                                   per_split=self.SPLIT)
+            assert z2_general.LAUNCHES["general_sums"] == 4
+        assert np.array_equal(got, mono)
+        segs = [np.sort(58000.0 + 2.0 * i + np.random.RandomState(i).uniform(0.0, 1.5, 3001)) for i in range(3)]
+        tm = {"PEPOCH": 58000.0, "F0": 0.1432, "F1": -1e-14}
+        ph, t_ref = anchored.fold_segments(tm, segs, delta_fold=0, device=cuda_device)
+        idx = np.repeat(np.arange(3), [s.size for s in segs])
+        delta = anchored.anchor_deltas(np.concatenate(segs), t_ref, idx)
+        folded = np.concatenate(ph)
+        dp = np.zeros(deltafold.n_params(0))
+        dp[0] = 3e-10
+        basis = deltafold.build_basis(tm, t_ref, delta, idx, device=cuda_device).b
+        mono = deltafold.refold(torch.as_tensor(folded, device=cuda_device), basis,
+                                torch.as_tensor(dp, device=cuda_device)).cpu().numpy()
+        with pmesh.virtual_devices(["cuda:0"] * 4):
+            deltafold.reset_launches()
+            sharded = pmesh.delta_refold_sharded(tm, t_ref, folded, delta, idx, dp)
+            assert deltafold.LAUNCHES["refold"] == 4
+        assert np.array_equal(sharded, mono)
+
+    def test_no_mesh_on_one_card_without_virtual_devices(self, cuda_device):
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        if torch.cuda.device_count() == 1:
+            assert pmesh.auto_mesh(device=cuda_device) is None
+
+    def test_native_reader_loads_with_the_pure_bits(self, cuda_device):
+        from crimp_tpu_torch.io import events, fitsio, native
+
+        assert native.load() is not None, native.BUILD_INFO
+        path = str(DATA / "1e2259_ni1020600110.fits")
+        hdu = fitsio.read_fits(path)["EVENTS"]
+        cols = native.read_columns(path, "EVENTS", ["TIME", "PI"])
+        for c in ("TIME", "PI"):
+            assert np.array_equal(cols[c], np.asarray(hdu.column(c), dtype=np.float64))
+        assert events.EventFile(path).build_time_energy_df().reader == "native"
+
+
+@pytest.mark.gpu
+class TestParallelOnCards:
+    """The sharded twins on distinct cards (two or more, up to four): each
+    shard's kernel launches on its own card, whatever card is current, and
+    every layout gives the bits of the same layout on shards of one card
+    (the same kernels on the same inputs); a kernel span whose launches
+    went to several cards resolves; ``auto_mesh`` spreads a large scan over
+    the cards."""
+
+    SPLIT = 1 << 16  # 200 000 events: 4 splits
+
+    @pytest.fixture
+    def cards(self, cuda_device):
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two or more CUDA cards")
+        return [f"cuda:{i}" for i in range(min(4, torch.cuda.device_count()))]
+
+    def test_twins_on_distinct_cards_are_the_one_card_bits(self, cards, cuda_device, monkeypatch, tmp_path):
+        from crimp_tpu_torch import obs
+        from crimp_tpu_torch.ops import deltafold, semicoherent
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        monkeypatch.setenv("CRIMP_TORCH_OBS", "1")
+        monkeypatch.setenv("CRIMP_TORCH_OBS_DIR", str(tmp_path))
+        k = len(cards)
+        t = _pulsed(200000)
+        freqs = np.linspace(0.2490, 0.2510, 1500)
+        fdots = np.array([-1e-13, 0.0])
+        f0, df = search.uniform_grid(freqs)
+        geo = np.geomspace(0.2490, 0.2510, 3000)
+        segs = [np.sort(58000.0 + 2.0 * i + np.random.RandomState(i).uniform(0.0, 1.5, 3001)) for i in range(3)]
+        tm = {"PEPOCH": 58000.0, "F0": 0.1432, "F1": -1e-14}
+        ph, t_ref = anchored.fold_segments(tm, segs, delta_fold=0, device=cuda_device)
+        idx = np.repeat(np.arange(3), [s.size for s in segs])
+        delta = anchored.anchor_deltas(np.concatenate(segs), t_ref, idx)
+        dp = np.zeros(deltafold.n_params(0))
+        dp[0] = 3e-10
+
+        def run(devices):
+            z2_grid.reset_launches()
+            z2_general.reset_launches()
+            deltafold.reset_launches()
+            events = pmesh.build_mesh(devices, event_parallel=k)
+            out = {
+                "k2_events": pmesh.z2_2d_sharded(t, freqs, fdots, 2, events, poly=True, per_split=self.SPLIT),
+                "k2_trials": pmesh.z2_2d_sharded(t, freqs, fdots, 2, pmesh.build_mesh(devices, event_parallel=1),
+                                                 poly=True, per_split=self.SPLIT),
+                "k3_events": pmesh.z2_sharded(t, geo, 2, events, poly=True, use_fastpath=False,
+                                              per_split=self.SPLIT),
+                "k4_events": pmesh.delta_refold_sharded(tm, t_ref, np.concatenate(ph), delta, idx, dp,
+                                                        mesh=pmesh.Mesh(devices, (pmesh.EVENT_AXIS,))),
+                "stack": semicoherent.semicoherent_z2_grid(t, f0, df, freqs.size, fdots, [0.0], nharm=2,
+                                                           n_segments=k, mesh=pmesh.segment_mesh(devices),
+                                                           device=cuda_device).cpu().numpy(),
+            }
+            launches = (z2_grid.LAUNCHES["z2_tile_sums"], z2_general.LAUNCHES["general_sums"],
+                        deltafold.LAUNCHES["refold"])
+            return out, launches
+
+        with obs.run("distinct_cards"):
+            spread, spread_launches = run(cards)
+        one, one_launches = run(["cuda:0"] * k)
+        assert spread_launches == one_launches == (3 * k, k, k)
+        for key in one:
+            assert np.array_equal(spread[key], one[key]), key
+        with open(obs.last_manifest_path()) as fh:
+            doc = json.load(fh)
+        names = ("sharded_sums_grid", "sharded_sums_general", "delta_refold_sharded", "semicoherent_stack")
+        durs = {s["name"]: s["dur_s"] for s in doc["spans"] if s["name"] in names}
+        assert set(durs) == set(names) and all(d is not None and d > 0 for d in durs.values()), durs
+
+    def test_auto_mesh_spreads_a_large_scan_over_the_cards(self, cards, cuda_device, monkeypatch):
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        monkeypatch.delenv("CRIMP_TORCH_SHARD", raising=False)
+        mesh = pmesh.auto_mesh(device=cuda_device)
+        assert mesh is not None and mesh.cards() == torch.cuda.device_count()
+        t = _pulsed(400000)
+        freqs = np.linspace(0.2490, 0.2510, 12000)
+        z2_grid.reset_launches()
+        spread = search.PeriodSearch(t, freqs, 2, device=cuda_device).ztest()
+        assert z2_grid.LAUNCHES["z2_tile_sums"] == mesh.size
+        monkeypatch.setenv("CRIMP_TORCH_SHARD", "0")
+        z2_grid.reset_launches()
+        alone = search.PeriodSearch(t, freqs, 2, device=cuda_device).ztest()
+        assert z2_grid.LAUNCHES["z2_tile_sums"] == 1
+        np.testing.assert_allclose(spread, alone, rtol=2e-3, atol=0.05)
+        assert int(np.argmax(spread)) == int(np.argmax(alone))

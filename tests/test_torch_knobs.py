@@ -10,7 +10,7 @@
   delta fold and its budget and cache, the delta MCMC and the multisource
   knobs, and the knobs of the measuring and tuning layer (GRID_BLOCKS,
   MXU_BF16, OBS_COST, OBS_LEDGER, RETRIES, BACKOFF_S, COMPILE_CACHE,
-  TRACE_DIR).
+  TRACE_DIR), and of the parallel layer (SHARD, DIST).
 """
 
 import numpy as np
@@ -29,7 +29,7 @@ SUFFIXES = {"GRID_FASTPATH", "GRID_MXU", "STREAM_MIN_EVENTS", "TOA_DENSE_WINDOW"
             "MULTISOURCE_BATCH", "OBS", "OBS_DIR", "OBS_EVENTS", "OBS_HEARTBEAT_S", "OBS_HOST", "FAULTS",
             "AUTOTUNE", "AUTOTUNE_CACHE", "SERVE_QUEUE", "SERVE_DEADLINE_MS", "SERVE_BREAKER", "SERVE_WARM_BATCH",
             "SERVE_PREP_OVERLAP", "GRID_BLOCKS", "MXU_BF16", "OBS_COST", "OBS_LEDGER", "RETRIES", "BACKOFF_S",
-            "COMPILE_CACHE", "TRACE_DIR"}
+            "COMPILE_CACHE", "TRACE_DIR", "SHARD", "DIST"}
 
 
 @pytest.fixture(autouse=True)

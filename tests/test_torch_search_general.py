@@ -241,10 +241,14 @@ print("BAD", bad)
 print("MISSING", sorted(set({layer!r}) - set(names)))
 """
 
-# the modules of the measuring and tuning layer, which the walk must reach
+# the modules of the measuring and tuning layer and of the parallel layer, which the walk must reach
 LAYER_MODULES = ("crimp_tpu_torch.aot", "crimp_tpu_torch.obs.costmodel", "crimp_tpu_torch.obs.roofline",
           "crimp_tpu_torch.obs.ledger", "crimp_tpu_torch.ops.resumable", "crimp_tpu_torch.utils.profiling",
-          "crimp_tpu_torch.utils.platform", "crimp_tpu_torch.utils.benchwork")
+          "crimp_tpu_torch.utils.platform", "crimp_tpu_torch.utils.benchwork",
+          # the parallel layer and the native event reader
+          "crimp_tpu_torch.io.native", "crimp_tpu_torch.parallel.mesh", "crimp_tpu_torch.parallel.registry",
+          "crimp_tpu_torch.parallel.multihost", "crimp_tpu_torch.utils.multihost_worker",
+          "crimp_tpu_torch.utils.cards_ab")
 
 
 def test_new_modules_import_neither_jax_nor_crimp_tpu():

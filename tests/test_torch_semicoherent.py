@@ -96,8 +96,12 @@ class TestStack:
     def test_refusals(self, pulsed_events):
         with pytest.raises(ValueError, match="stack"):
             semi.semicoherent_z2_grid(pulsed_events, stack="hough", n_segments=2, device="cpu", **CUBE)
-        with pytest.raises(NotImplementedError, match="parallel"):
-            semi.semicoherent_z2_grid(pulsed_events, n_segments=2, mesh=object(), device="cpu", **CUBE)
+        # a mesh is taken now (parallel.mesh); the stack twin takes only a 1-D segment mesh
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        with pytest.raises(ValueError, match="segment mesh"):
+            semi.semicoherent_z2_grid(pulsed_events, n_segments=2, mesh=pmesh.build_mesh(["cpu"] * 2),
+                                      device="cpu", **CUBE)
 
 
 class TestStackedPowerFromPhases:

@@ -615,8 +615,12 @@ class TestPrepOverlapAndLifecycle:
         assert exc.value.kind is FailureKind.RESOURCE_EXHAUSTED
 
     def test_device_mesh_and_warmup(self, monkeypatch):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            serve.ServingEngine(mesh=object(), device="cpu")
+        # a mesh is a capacity note now (parallel.mesh); it changes no result
+        from crimp_tpu_torch.parallel import mesh as pmesh
+
+        noted = serve.ServingEngine(mesh=pmesh.build_mesh(["cpu"] * 2), device="cpu")
+        assert noted.capacity["devices"] == 2 and noted.capacity["mesh_axes"] == {"events": 2, "trials": 1}
+        noted.close()
         assert port_engine().warmup() == {"device": "cpu", "built": {}, "seconds": 0.0}
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="device='cpu'"):
