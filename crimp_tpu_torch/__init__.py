@@ -15,4 +15,16 @@ only through ``knobs`` (prefix ``CRIMP_TORCH_``); ``resilience`` classifies
 failures and holds the degradation ladders, ``obs`` the run telemetry.
 """
 
-__all__ = ["io", "knobs", "models", "obs", "ops", "parallel", "pipelines", "resilience", "utils"]
+__all__ = ["io", "knobs", "models", "obs", "ops", "parallel", "pipelines", "resilience", "utils", "warmup"]
+
+
+def warmup(**kwargs):
+    """Build the hand kernels and run each hot path once at its real shapes.
+
+    Thin lazy delegate to :func:`crimp_tpu_torch.aot.warmup`, the JAX
+    package's ``crimp_tpu.warmup``: importing the package stays free of
+    torch; calling this builds and launches on the card.
+    """
+    from crimp_tpu_torch import aot
+
+    return aot.warmup(**kwargs)

@@ -48,6 +48,8 @@ BUILD_INFO: dict = {}
 _lib = None
 _load_attempted = False
 _LOCK = threading.Lock()
+# guards BUILD_INFO; build() runs under _LOCK from load(), so it takes its own
+_INFO_LOCK = threading.Lock()
 
 
 def build() -> pathlib.Path:
@@ -56,7 +58,8 @@ def build() -> pathlib.Path:
     ``OSError`` without ``g++`` (or a source) and
     ``subprocess.CalledProcessError`` when the compiler fails."""
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= SOURCE.stat().st_mtime:
-        BUILD_INFO.update(path=str(LIB_PATH), seconds=0.0, cached=True)
+        with _INFO_LOCK:
+            BUILD_INFO.update(path=str(LIB_PATH), seconds=0.0, cached=True)
         return LIB_PATH
     cxx = shutil.which("g++")
     if cxx is None:
@@ -69,7 +72,8 @@ def build() -> pathlib.Path:
         os.replace(tmp, LIB_PATH)
     finally:
         tmp.unlink(missing_ok=True)
-    BUILD_INFO.update(path=str(LIB_PATH), seconds=time.perf_counter() - t0, cached=False)
+    with _INFO_LOCK:
+        BUILD_INFO.update(path=str(LIB_PATH), seconds=time.perf_counter() - t0, cached=False)
     return LIB_PATH
 
 
@@ -84,7 +88,8 @@ def load() -> ctypes.CDLL | None:
         try:
             lib = ctypes.CDLL(str(build()))
         except (OSError, subprocess.CalledProcessError) as exc:
-            BUILD_INFO["error"] = str(exc)
+            with _INFO_LOCK:
+                BUILD_INFO["error"] = str(exc)
             logger.info("native crimpio unavailable (%s); using the pure-Python FITS path", exc)
             return None
         dp, vp = ctypes.POINTER(ctypes.c_double), ctypes.c_void_p

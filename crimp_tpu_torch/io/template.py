@@ -94,3 +94,7 @@ def write_template(path_stem: str, fit_results: dict) -> str:
         fh.write(f"dof {fit_results['dof']}\n")
         fh.write(f"redchi2 {fit_results['redchi2']}\n")
     return path
+
+
+# Reference-named alias, as in the JAX package.
+readPPtemplate = read_template

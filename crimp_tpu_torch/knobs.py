@@ -62,6 +62,14 @@ def _build_registry(knobs: tuple[Knob, ...]) -> dict[str, Knob]:
 
 REGISTRY: dict[str, Knob] = _build_registry((
     # -- kernel numeric modes ------------------------------------------------
+    # Auto is on for the card and off on the CPU: the card plays the TPU's
+    # part in the JAX package's auto rule, being the accelerator the hand
+    # kernels were written for, and off on the CPU is JAX's own default
+    # there. On an H100, K3 with the polynomial ran 88.18-88.88 ms against
+    # 121.30-122.13 ms with sincosf at the same shape (PERF.md, kernel table).
+    Knob("CRIMP_TORCH_POLY_TRIG", "auto (on for the card, off on the CPU)", "bool",
+         numeric_key="poly_trig", consumer="ops/fasttrig.py",
+         doc="polynomial sin/cos pair in the search kernels"),
     Knob("CRIMP_TORCH_GRID_FASTPATH", "auto (nharm-based)", "bool",
          numeric_key="grid_fastpath", consumer="ops/search.py",
          doc="uniform-grid kernel K2 vs the general exact-phase kernel K3"),
@@ -159,6 +167,10 @@ REGISTRY: dict[str, Knob] = _build_registry((
          consumer="crimp_tpu_torch/obs/costmodel.py",
          doc="cost-model capture (FLOPs/bytes per kernel call) feeding the manifest costmodel "
              "table and `obs roofline`; 0 disables"),
+    Knob("CRIMP_TORCH_HBM_WARN_PCT", "90", "float",
+         consumer="crimp_tpu_torch/obs/core.py",
+         doc="warn (once per run) when the card's peak allocated bytes exceed this percent of "
+             "its memory at a stage boundary; 0 disables"),
     Knob("CRIMP_TORCH_OBS_LEDGER", "unset (off)", "path",
          consumer="crimp_tpu_torch/obs/ledger.py",
          doc="append-only performance-ledger JSONL (`obs ledger add|show|check`)"),

@@ -323,7 +323,8 @@ class RunRecorder:
 
     def _hbm_update(self, stats: dict) -> None:
         """Fold one device memory sample into the run's HBM gauges; warns
-        once per run when the peak passes 90% of the card's memory."""
+        once per run when the peak passes CRIMP_TORCH_HBM_WARN_PCT (default
+        90; 0 disables) percent of the card's memory."""
         in_use = stats.get("bytes_in_use")
         peak = stats.get("peak_bytes_in_use", in_use)
         limit = stats.get("bytes_limit")
@@ -333,13 +334,16 @@ class RunRecorder:
             if isinstance(peak, (int, float)):
                 self.gauges["hbm_peak_bytes"] = max(self.gauges.get("hbm_peak_bytes", 0), peak)
         if (not self._hbm_warned and isinstance(peak, (int, float))
-                and isinstance(limit, (int, float)) and limit > 0 and peak >= 0.9 * limit):
-            self._hbm_warned = True
-            with _LOCK:
-                self.counters["hbm_warn_trips"] = self.counters.get("hbm_warn_trips", 0) + 1
-            logger.warning("HBM high water %.1f%% of the card's memory (%d / %d bytes)",
-                           100.0 * peak / limit, peak, limit)
-            self._emit({"ev": "ctr", "k": "hbm_warn_trips", "v": 1})
+                and isinstance(limit, (int, float)) and limit > 0):
+            warn_pct = knobs.env_float("CRIMP_TORCH_HBM_WARN_PCT", 90.0)
+            pct = 100.0 * peak / limit
+            if warn_pct > 0 and pct >= warn_pct:
+                self._hbm_warned = True
+                with _LOCK:
+                    self.counters["hbm_warn_trips"] = self.counters.get("hbm_warn_trips", 0) + 1
+                logger.warning("HBM high water %.1f%% of the card's memory (%d / %d bytes), above "
+                               "CRIMP_TORCH_HBM_WARN_PCT=%g", pct, peak, limit, warn_pct)
+                self._emit({"ev": "ctr", "k": "hbm_warn_trips", "v": 1})
 
     def finalize(self) -> str | None:
         """Close the root span, write the manifest atomically, return its

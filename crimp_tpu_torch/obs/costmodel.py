@@ -154,7 +154,7 @@ def meta_flops(fn, args: tuple, kwargs: dict) -> float | None:
         with FlopCounterMode(display=False) as counter:
             fn(*_to_meta(args), **_to_meta(kwargs))
         total = counter.get_total_flops()
-    except Exception:  # a data-dependent branch, a host copy: no count
+    except Exception:  # graftlint: disable=GL006 (telemetry guard: a data-dependent branch or a host copy cannot run on meta tensors; the row's FLOPs degrade to None)
         return None
     return float(total) if total > 0 else None
 
@@ -233,7 +233,7 @@ def capture(name: str, fn, *args, counts=None, out=None, plan=None, **kwargs) ->
         obs_core.record_cost(name, out_row)
         obs_core.counter_add("costmodel_rows")
         return out_row
-    except Exception as exc:  # capture never fails the kernel that just ran
+    except Exception as exc:  # graftlint: disable=GL006 (telemetry guard: cost capture degrades to no-row; obs cannot import resilience without a cycle)
         logger.debug("cost capture failed for %s: %s", name, exc)
         obs_core.counter_add("costmodel_capture_errors")
         return None

@@ -62,7 +62,9 @@ GREEN_CLASSES = frozenset(("onchip",))
 # metric name -> (where it lives in a bench record, which direction is
 # better). "higher" gates throughput, "lower" gates walls and compile
 # telemetry.
-METRICS: dict[str, dict] = {
+# The port has no benchmark yet: chip_smoke.py writes no bench record, so
+# GL010's ledger leg finds most of these fields unfed until one exists.
+METRICS: dict[str, dict] = {  # graftlint: disable=GL010 (no port benchmark yet, so chip_smoke.py produces no ledger record)
     "toas_per_sec": {"field": "value", "better": "higher"},
     "north_star_wall_s": {"field": "north_star_wall_s", "better": "lower"},
     "z2_trials_per_sec": {"field": "z2_trials_per_sec", "better": "higher"},

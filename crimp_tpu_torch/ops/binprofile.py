@@ -49,3 +49,7 @@ def bin_phases(phases: np.ndarray, nbrBins: int = 15) -> dict:
         "ctsBins": counts,
         "ctsBinsErr": np.sqrt(counts),
     }
+
+
+# Reference-named alias (binphases.py:9), as in the JAX package.
+binphases = bin_phases

@@ -78,6 +78,9 @@ LAUNCHES = {"refold": 0}
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+# guards LAUNCHES, the in-process fold cache and the last fold's info (the
+# serving engine's prep thread and the heartbeat run beside the caller)
+_STATE_LOCK = threading.Lock()
 
 
 def resolve_delta_fold(delta_fold=None, budget=None, n_events: int = 1, device=None) -> tuple[int, float]:
@@ -95,9 +98,25 @@ def resolve_delta_fold(delta_fold=None, budget=None, n_events: int = 1, device=N
     return int(bool(delta_fold)), float(budget)
 
 
+def resolve(n_events: int, delta_fold=None, budget=None, device=None) -> dict:
+    """{'delta_fold': 0/1, 'budget': cycles} for a fold of n_events, the
+    JAX package's ``deltafold.resolve``: explicit arguments beat
+    ``autotune.resolve_delta_fold`` (env > a cached verdict of ``device`` >
+    off at 1e-9 cycles)."""
+    from crimp_tpu_torch.ops import autotune
+
+    out = autotune.resolve_delta_fold(n_events, device=device)
+    if delta_fold is not None:
+        out["delta_fold"] = int(bool(delta_fold))
+    if budget is not None:
+        out["budget"] = float(budget)
+    return out
+
+
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _STATE_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +339,8 @@ def _launch_refold(folded: torch.Tensor, basis: torch.Tensor, dp: torch.Tensor) 
         rc = lib.deltafold_refold(folded.data_ptr(), basis.data_ptr(), dp.data_ptr(), out.data_ptr(),
                                   n_batch, n_events, basis.shape[2], stream)
     z2_grid.check_launch(rc, "deltafold_refold")
-    LAUNCHES["refold"] += 1
+    with _STATE_LOCK:
+        LAUNCHES["refold"] += 1
     return out
 
 
@@ -379,12 +399,20 @@ def last_fold_info() -> dict:
     """The most recent cached_fold call: mode (exact / cache / delta), guard
     bound, and the reason an update was not refolded (``fallback``:
     ``budget`` or ``nonlinear``)."""
-    return dict(_last_info)
+    with _STATE_LOCK:
+        return dict(_last_info)
+
+
+def _set_last_info(info: dict) -> None:
+    global _last_info
+    with _STATE_LOCK:
+        _last_info = info
 
 
 def clear_cache() -> None:
     """Drop the in-process fold cache."""
-    _MEM_CACHE.clear()
+    with _STATE_LOCK:
+        _MEM_CACHE.clear()
 
 
 def fold_cache_mode(fold_cache=None) -> tuple[str, pathlib.Path | None]:
@@ -432,17 +460,19 @@ def fold_key(times_cat: np.ndarray, sizes, t_ref: np.ndarray, model_sha: str | N
 
 
 def _mem_get(key: str) -> FoldProduct | None:
-    prod = _MEM_CACHE.get(key)
-    if prod is not None:
-        _MEM_CACHE.move_to_end(key)
+    with _STATE_LOCK:
+        prod = _MEM_CACHE.get(key)
+        if prod is not None:
+            _MEM_CACHE.move_to_end(key)
     return prod
 
 
 def _mem_put(key: str, prod: FoldProduct) -> None:
-    _MEM_CACHE[key] = prod
-    _MEM_CACHE.move_to_end(key)
-    while len(_MEM_CACHE) > _MEM_CAP:
-        _MEM_CACHE.popitem(last=False)
+    with _STATE_LOCK:
+        _MEM_CACHE[key] = prod
+        _MEM_CACHE.move_to_end(key)
+        while len(_MEM_CACHE) > _MEM_CAP:
+            _MEM_CACHE.popitem(last=False)
 
 
 def _product_sha(prod: FoldProduct) -> str:
@@ -549,7 +579,6 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
     exactly (``info["fallback"] == "unsupported"``, not a degradation); a
     failing refold raises, a device fault as ``KernelError``.
     """
-    global _last_info
     dev = resolve_device(device)
     tm = timing.resolve(tm)
     mode, disk_dir = fold_cache_mode(fold_cache)
@@ -575,7 +604,7 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
         if not np.any(dp):
             info["mode"] = "cache"
             obs.counter_add("delta_fold_cache_hits")
-            _last_info = info
+            _set_last_info(info)
             return prod.phases.copy(), info
         if not refold_supported(int(np.size(times_cat)), int(dp.size), dev):
             info["fallback"] = "unsupported"
@@ -596,7 +625,7 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
                 folded = z2_grid.to_host(out, "deltafold_refold")
                 info["mode"] = "delta"
                 obs.counter_add("delta_fold_refolds")
-                _last_info = info
+                _set_last_info(info)
                 return folded, info
             info["fallback"] = "budget"
             obs.counter_add("delta_fold_guard_trips")
@@ -611,7 +640,7 @@ def cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact_fn, budget
         _mem_put(key, new)
         if mode == "disk":
             _disk_put(key, new, disk_dir)
-    _last_info = info
+    _set_last_info(info)
     return folded, info
 
 

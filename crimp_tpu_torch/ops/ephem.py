@@ -137,7 +137,7 @@ def integer_rotation_host(tm: TimingParams, time_mjd: np.ndarray, tol_phase: flo
     from crimp_tpu_torch.ops import anchored
 
     def phase_nw(t):
-        return anchored._host_taylor_phase(tm, t) + anchored._host_glitch_phase(tm, t).astype(np.longdouble)
+        return anchored._host_taylor_phase(tm, t) + anchored._host_glitch_phase(tm, t).astype(np.longdouble)  # graftlint: disable=GL004 (host-only Newton twin of the device solve; it extends anchored.py's longdouble phase and nothing here is ever traced)
 
     t = np.atleast_1d(np.asarray(time_mjd, dtype=np.float64))
     target = np.floor(phase_nw(t))

@@ -8,16 +8,22 @@ least-squares polynomials evaluate sin(2*pi*x) and cos(2*pi*x) directly:
     max |error| = 3.1e-7 (sin), 3.6e-8 (cos)  over |x| <= 0.5
 
 The Z^2 kernels (``csrc/z2_grid.cu``, ``csrc/z2_general.cu``) and their
-plain twins use this pair by default, as the Pallas kernel did; their
-``poly=False`` mode takes f32 sin/cos of 2*pi*frac instead. The
-coefficients below are repeated in both CUDA sources as float literals;
-``tests/test_torch_z2.py`` and ``tests/test_torch_search_general.py`` pin
-the copies equal.
+plain twins take this pair with ``poly=True`` and f32 sin/cos of
+2*pi*frac with ``poly=False``. ``poly_trig_enabled`` resolves the default
+as the JAX package does: the explicit argument, then
+CRIMP_TORCH_POLY_TRIG, then the device (on for the card, the accelerator
+the hand kernels were written for, as the TPU is for the JAX package; off
+on the CPU, JAX's own default there). The coefficients below are repeated
+in both CUDA sources as float literals; ``tests/test_torch_z2.py`` and
+``tests/test_torch_search_general.py`` pin the copies equal.
 """
 
 from __future__ import annotations
 
 import torch
+
+from crimp_tpu_torch import knobs
+from crimp_tpu_torch.utils import device as device_mod
 
 # Least-squares fits on [-0.5, 0.5] (degree 11 odd / 12 even in x).
 _SIN_COEFFS = (
@@ -37,6 +43,23 @@ _COS_COEFFS = (
     -2.6000532120e01,
     6.5756180224e00,
 )
+
+
+def poly_trig_enabled(override: bool | None = None, device=None) -> bool:
+    """Whether the search kernels take the polynomial sin/cos pair.
+
+    Precedence: explicit ``override`` > CRIMP_TORCH_POLY_TRIG > the device
+    of the call: on for ``cuda``, off for the CPU (``device=None`` is the
+    port's default device, the card unless a script forced the CPU). A word
+    outside the on/off sets raises, as in the JAX package.
+    """
+    if override is not None:
+        return bool(override)
+    state = knobs.env_onoff("CRIMP_TORCH_POLY_TRIG")
+    if state is not None:
+        return state
+    dev = device_mod.default_device() if device is None else torch.device(device)
+    return dev.type == "cuda"
 
 
 def centered_frac(x: torch.Tensor) -> torch.Tensor:

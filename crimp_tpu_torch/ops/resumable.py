@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from crimp_tpu_torch import knobs, obs, resilience
+from crimp_tpu_torch.ops import fasttrig
 from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils.device import resolve_device
 
@@ -127,7 +128,7 @@ class ResumableScan:
         # Every numeric-mode knob resolves now and is pinned in the store:
         # chunks of different modes never mix into one power array.
         self._poly_explicit = poly is not None
-        self.poly = True if poly is None else bool(poly)
+        self.poly = fasttrig.poly_trig_enabled(poly, self.device)
         self._fastpath = self._grid is not None and search.grid_fastpath_enabled(self.nharm)
         n_rows = len(self.fdots) * (1 if self.fddots is None else len(self.fddots))
         self._mxu_explicit = knobs.env_nonneg_int(autotune.GRID_MXU_ENV, valid=(0, 1)) is not None

@@ -71,7 +71,24 @@ STREAM_MIN_EVENTS_DEFAULT = 1 << 22
 # reduce of a sharded dispatch outweigh the parallel win (PeriodSearch._mesh);
 # JAX's threshold.
 MIN_SHARD_PAIRS = 1 << 22
+# The JAX package's default (event_block, trial_block) tiling. The port's
+# kernels fix their tiles at compile time and plan the event split length
+# per problem (``autotune.static_defaults``), so the pair reads as (a split
+# length, K2's trial tile).
+DEFAULT_EVENT_BLOCK = 1 << 16
+DEFAULT_TRIAL_BLOCK = 256  # z2_grid.TRIAL_TILE (z2_grid imports this module, so not read from it here)
 _FROM_ENV = object()
+
+
+def resolve_blocks(kernel: str, n_events: int, n_trials: int, poly: bool = False,
+                   event_block: int | None = None, trial_block: int | None = None,
+                   device=None) -> tuple[int, int]:
+    """(event_block, trial_block) through the autotuner: a thin delegate to
+    ``autotune.resolve_blocks``, the JAX package's ``search.resolve_blocks``.
+    Explicit arguments > CRIMP_TORCH_GRID_BLOCKS (grid kernels) > a cached
+    verdict of ``device`` > the static plan."""
+    return autotune.resolve_blocks(kernel, n_events, n_trials, poly=poly, event_block=event_block,
+                                   trial_block=trial_block, device=device)
 
 
 def grid_fastpath_enabled(nharm: int, override: bool | None = None) -> bool:
@@ -105,15 +122,18 @@ def stream_min_events(threshold=_FROM_ENV) -> int | None:
 
 
 def resolve_grid_mxu(mxu: bool | None = None, reseed: int | None = None, mxu_bf16: bool | None = None,
-                     n_events: int = 1, n_trials: int = 1, poly: bool = True,
+                     n_events: int = 1, n_trials: int = 1, poly: bool | None = None,
                      cube: bool = False, device=None) -> tuple[bool, int, bool]:
     """(use_mxu, reseed, mxu_bf16) for the grid wrappers: explicit arguments
     are hard overrides; anything left None resolves through
     ``autotune.resolve_grid_mxu`` (``resolve_grid3d_mxu`` for the ``cube``):
     CRIMP_TORCH_GRID_MXU / CRIMP_TORCH_MXU_BF16 > a cached A/B verdict for
-    (n_events, n_trials, poly) on ``device`` > off, reseed GRID_MXU_RESEED."""
+    (n_events, n_trials, poly) on ``device`` > off, reseed GRID_MXU_RESEED.
+    ``poly=None`` resolves through ``fasttrig.poly_trig_enabled`` on
+    ``device``."""
     if mxu is not None and reseed is not None and mxu_bf16 is not None:
         return bool(mxu), int(reseed), bool(mxu_bf16)
+    poly = fasttrig.poly_trig_enabled(poly, device)
     r = (autotune.resolve_grid3d_mxu if cube else autotune.resolve_grid_mxu)(n_events, n_trials, poly=poly,
                                                                              device=device)
     return (bool(r["grid_mxu"]) if mxu is None else bool(mxu),
@@ -259,14 +279,15 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
 
 
 def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
-                          poly: bool = True, mxu: bool | None = None, reseed: int | None = None,
+                          poly: bool | None = None, mxu: bool | None = None, reseed: int | None = None,
                           mxu_bf16: bool | None = None, weights=None,
                           per_split: int | None = None, tile0: int = 0, device=None,
                           ladder: bool = True, plan: str | None = None, mxu_blocks=None):
     """(c, s, n_events) for the uniform-grid wrappers, c and s of shape
     (n_fddot, n_fdot, nharm, n_freq) f64 (n_fddot = 1 when ``fddots`` is
-    None: the 2-D K2 instantiation). ``mxu`` picks the factorized matmul
-    path (explicit > CRIMP_TORCH_GRID_MXU > a cached verdict > off;
+    None: the 2-D K2 instantiation). ``poly`` None resolves through
+    ``fasttrig.poly_trig_enabled`` on the call's device. ``mxu`` picks the
+    factorized matmul path (explicit > CRIMP_TORCH_GRID_MXU > a cached verdict > off;
     ``resolve_grid_mxu``). ``per_split`` pins K2's launch plan (None:
     ``autotune.resolve_blocks`` under ``plan``, by default "grid3d" for a
     cube and "grid" otherwise); ``tile0`` computes the trial tiles
@@ -283,6 +304,7 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
     t = as_f64(times, resolve_device(device))
+    poly = fasttrig.poly_trig_enabled(poly, t.device)
     n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
     cube = fddots is not None
     use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16, t.shape[0],
@@ -351,6 +373,48 @@ def harmonic_sums_3d_grid(times, f0: float, df: float, n_freq: int, fdots, fddot
     c, s, _ = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, device=device,
                                     **kw)
     return c, s
+
+
+def _uniform_sums(times, f0, df, n_freq, fdots, fddots, nharm, event_block, trial_block, weights, poly,
+                  device):
+    """K2's sums for the JAX-named uniform wrappers: no factorized path, no
+    ladder; ``event_block`` is the split length (None: the resolved plan)."""
+    if trial_block != z2_grid.TRIAL_TILE:
+        raise ValueError(f"K2's trial tile is {z2_grid.TRIAL_TILE}, got trial_block={trial_block}")
+    c, s, _ = _grid3d_sums_dispatch(times, f0, df, n_freq, fdots, fddots, nharm, poly=poly, mxu=False,
+                                    reseed=GRID_MXU_RESEED, mxu_bf16=False, weights=weights,
+                                    per_split=event_block, device=device, ladder=False)
+    return c, s
+
+
+def harmonic_sums_uniform(times, f0: float, df: float, n_freq: int, nharm: int,
+                          event_block: int | None = None, trial_block: int = DEFAULT_TRIAL_BLOCK,
+                          fdot: float = 0.0, weights=None, poly: bool | None = None, device=None):
+    """Trig sums (nharm, n_freq) f64 each over the uniform grid f0 + j*df
+    through K2: the JAX package's ``harmonic_sums_uniform``, with
+    ``event_block`` read as K2's split length."""
+    c, s = _uniform_sums(times, f0, df, n_freq, [fdot], None, nharm, event_block, trial_block, weights,
+                         poly, device)
+    return c[0, 0], s[0, 0]
+
+
+def harmonic_sums_uniform_2d(times, f0: float, df: float, n_freq: int, fdots, nharm: int,
+                             event_block: int | None = None, trial_block: int = DEFAULT_TRIAL_BLOCK,
+                             weights=None, poly: bool | None = None, device=None):
+    """Trig sums (n_fdot, nharm, n_freq) f64 each over the (fdot x uniform
+    frequency) grid through K2: the JAX package's ``harmonic_sums_uniform_2d``."""
+    c, s = _uniform_sums(times, f0, df, n_freq, fdots, None, nharm, event_block, trial_block, weights,
+                         poly, device)
+    return c[0], s[0]
+
+
+def harmonic_sums_uniform_3d(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,
+                             event_block: int | None = None, trial_block: int = DEFAULT_TRIAL_BLOCK,
+                             weights=None, poly: bool | None = None, device=None):
+    """Trig sums (n_fddot, n_fdot, nharm, n_freq) f64 each over the search
+    cube through K2: the JAX package's ``harmonic_sums_uniform_3d``."""
+    return _uniform_sums(times, f0, df, n_freq, fdots, fddots, nharm, event_block, trial_block, weights,
+                         poly, device)
 
 
 def z2_power_grid(times, f0: float, df: float, n_freq: int, nharm: int = 2, device=None,
@@ -552,10 +616,11 @@ def _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, resee
 def harmonic_sums_uniform_mxu(times, f0: float, df: float, n_freq: int, nharm: int,
                               event_block: int = MXU_EVENT_BLOCK,
                               trial_block: int = MXU_TRIAL_BLOCK, fdot: float = 0.0,
-                              weights=None, poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                              weights=None, poly: bool | None = None, reseed: int = GRID_MXU_RESEED,
                               mxu_bf16: bool = False, device=None):
     """Factorized 1-D grid sums -> (nharm, n_freq) f64 each."""
     t = as_f64(times, resolve_device(device))
+    poly = fasttrig.poly_trig_enabled(poly, t.device)
     c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, [fdot], None, nharm, poly, reseed, mxu_bf16,
                           event_block, trial_block)
     return c[0, 0], s[0, 0]
@@ -564,10 +629,11 @@ def harmonic_sums_uniform_mxu(times, f0: float, df: float, n_freq: int, nharm: i
 def harmonic_sums_uniform_2d_mxu(times, f0: float, df: float, n_freq: int, fdots, nharm: int,
                                  event_block: int = MXU_EVENT_BLOCK,
                                  trial_block: int = MXU_TRIAL_BLOCK, weights=None,
-                                 poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                                 poly: bool | None = None, reseed: int = GRID_MXU_RESEED,
                                  mxu_bf16: bool = False, device=None):
     """Factorized (fdot x frequency) grid sums -> (n_fdot, nharm, n_freq) f64 each."""
     t = as_f64(times, resolve_device(device))
+    poly = fasttrig.poly_trig_enabled(poly, t.device)
     c, s = _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, None, nharm, poly, reseed, mxu_bf16,
                           event_block, trial_block)
     return c[0], s[0]
@@ -576,10 +642,11 @@ def harmonic_sums_uniform_2d_mxu(times, f0: float, df: float, n_freq: int, fdots
 def harmonic_sums_uniform_3d_mxu(times, f0: float, df: float, n_freq: int, fdots, fddots,
                                  nharm: int, event_block: int = MXU_EVENT_BLOCK,
                                  trial_block: int = MXU_TRIAL_BLOCK, weights=None,
-                                 poly: bool = True, reseed: int = GRID_MXU_RESEED,
+                                 poly: bool | None = None, reseed: int = GRID_MXU_RESEED,
                                  mxu_bf16: bool = False, device=None):
     """Factorized cube sums -> (n_fddot, n_fdot, nharm, n_freq) f64 each."""
     t = as_f64(times, resolve_device(device))
+    poly = fasttrig.poly_trig_enabled(poly, t.device)
     return _mxu_grid_sums(t, weights, f0, df, n_freq, fdots, fddots, nharm, poly, reseed,
                           mxu_bf16, event_block, trial_block)
 
@@ -626,7 +693,7 @@ def _device_chunks(times: np.ndarray, plan, dev: torch.device):
 
 
 def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
-                           poly: bool = True, fdots=(0.0,), fddots=None,
+                           poly: bool | None = None, fdots=(0.0,), fddots=None,
                            event_chunk: int | None = None, mxu: bool = False,
                            reseed: int = GRID_MXU_RESEED, mxu_bf16: bool = False, tile0: int = 0,
                            device=None):
@@ -638,6 +705,7 @@ def _streamed_uniform_sums(times, f0: float, df: float, n_freq: int, nharm: int,
     ``per_split``. Factorized path: the same event blocks feed the same f64
     carry (the chunk length is a multiple of MXU_EVENT_BLOCK)."""
     dev = resolve_device(device)
+    poly = fasttrig.poly_trig_enabled(poly, dev)
     host = np.ascontiguousarray(
         times.detach().cpu().numpy() if isinstance(times, torch.Tensor) else times,
         dtype=np.float64).reshape(-1)
@@ -820,8 +888,9 @@ class PeriodSearch:
     ``time`` in seconds; trials are centered on t0 = (time[0]+time[-1])/2.
     Uniform trial grids with nharm <= 20 run through K2 unless
     ``use_grid_fastpath=False``; everything else through K3. ``poly_trig``
-    picks the polynomial sin/cos (None: polynomial, the port's choice, as K2
-    and the Pallas kernel do) or f32 sin/cos. Runs on ``device`` (default
+    picks the polynomial sin/cos or f32 sin/cos (None:
+    ``fasttrig.poly_trig_enabled`` on ``device``, the polynomial on the card
+    and f32 sin/cos on the CPU, as JAX's rule). Runs on ``device`` (default
     cuda). From ``MIN_SHARD_PAIRS`` (trial, event) pairs on, a job with
     several devices of that type shards the scan through
     ``parallel.mesh``'s twins (``auto_mesh``; ``CRIMP_TORCH_SHARD=0`` opts
@@ -839,7 +908,7 @@ class PeriodSearch:
         self.device = resolve_device(device)
 
     def _poly(self) -> bool:
-        return True if self.poly_trig is None else bool(self.poly_trig)
+        return fasttrig.poly_trig_enabled(self.poly_trig, self.device)
 
     def _grid(self):
         """(f0, df) when the trial grid is uniform and the fast path is on."""

@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from crimp_tpu_torch.ops import autotune, search
+from crimp_tpu_torch.ops import autotune, fasttrig, search
 from crimp_tpu_torch.utils.device import resolve_device
 
 
@@ -64,7 +64,7 @@ def split_segments(times, n_segments: int):
 
 
 def stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nharm: int = 2,
-                      poly: bool = True, mxu: bool = False,
+                      poly: bool | None = None, mxu: bool = False,
                       reseed: int = search.GRID_MXU_RESEED, mxu_bf16: bool = False,
                       device=None, per_split: int | None = None, tile0: int = 0):
     """Per-segment cube trig sums at the global phase model.
@@ -79,6 +79,7 @@ def stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nha
     seg_times = np.asarray(seg_times, dtype=np.float64)
     seg_weights = np.asarray(seg_weights, dtype=np.float64)
     counts = seg_weights.sum(axis=1)
+    poly = fasttrig.poly_trig_enabled(poly, resolve_device(device))
     if per_split is None and not mxu:
         n_rows = np.size(fdots) * np.size(fddots)
         per_split, _ = autotune.resolve_blocks("semicoherent", seg_times.shape[1], int(n_freq) * n_rows, poly,
@@ -95,7 +96,7 @@ def stacked_sums_grid(seg_times, seg_weights, f0, df, n_freq, fdots, fddots, nha
 
 
 def semicoherent_z2_grid(times, f0, df, n_freq, fdots, fddots, nharm: int = 2,
-                         n_segments: int = 8, stack: str = "incoherent", poly: bool = True,
+                         n_segments: int = 8, stack: str = "incoherent", poly: bool | None = None,
                          mxu: bool = False, reseed: int = search.GRID_MXU_RESEED,
                          mxu_bf16: bool = False, mesh=None, device=None, per_split: int | None = None,
                          tile0: int = 0) -> torch.Tensor:
@@ -119,6 +120,7 @@ def semicoherent_z2_grid(times, f0, df, n_freq, fdots, fddots, nharm: int = 2,
     if mesh is not None and stack == "incoherent":
         from crimp_tpu_torch.parallel import mesh as pmesh
 
+        poly = fasttrig.poly_trig_enabled(poly, pmesh.home_device(mesh))
         pad = (-len(seg_times)) % int(mesh.size)
         if pad:
             seg_times = np.pad(seg_times, ((0, pad), (0, 0)))

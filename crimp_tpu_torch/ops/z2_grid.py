@@ -70,11 +70,16 @@ _LIB_LOCK = threading.Lock()
 # last (parallel) build, "built" / "reused" count the libraries compiled and
 # found in the build directory over the process
 BUILD_INFO: dict = {}
+# guards LAUNCHES, BUILD_INFO and _TMP_BUILD_DIR (the serving engine's prep
+# thread and the heartbeat run beside the launching thread); build() runs
+# under _LIB_LOCK from _lib(), so these take their own lock
+_STATE_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _STATE_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +110,12 @@ def build_dir() -> pathlib.Path:
     target = platform.configure_compilation_cache()
     if target is not None:
         return target
-    if _TMP_BUILD_DIR is None:
-        import tempfile
+    with _STATE_LOCK:
+        if _TMP_BUILD_DIR is None:
+            import tempfile
 
-        _TMP_BUILD_DIR = pathlib.Path(tempfile.mkdtemp(prefix="crimp_tpu_torch_kernels_"))
-    return _TMP_BUILD_DIR
+            _TMP_BUILD_DIR = pathlib.Path(tempfile.mkdtemp(prefix="crimp_tpu_torch_kernels_"))
+        return _TMP_BUILD_DIR
 
 
 def build(force: bool = False) -> dict:
@@ -126,8 +132,9 @@ def build(force: bool = False) -> dict:
         out = out_dir / f"lib{name}_{key}.so"
         paths[name] = out
         if out.exists() and not force:
-            BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, log="")
-            BUILD_INFO["reused"] = BUILD_INFO.get("reused", 0) + 1
+            with _STATE_LOCK:
+                BUILD_INFO[name] = dict(path=str(out), seconds=0.0, cached=True, log="")
+                BUILD_INFO["reused"] = BUILD_INFO.get("reused", 0) + 1
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_path)]
@@ -141,9 +148,11 @@ def build(force: bool = False) -> dict:
             failed.append(f"nvcc {SOURCES[name].name} failed ({proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, log=log.strip())
-        BUILD_INFO["built"] = BUILD_INFO.get("built", 0) + 1
-    BUILD_INFO["seconds"] = time.perf_counter() - t0
+        with _STATE_LOCK:
+            BUILD_INFO[name] = dict(path=str(out), seconds=seconds, cached=False, log=log.strip())
+            BUILD_INFO["built"] = BUILD_INFO.get("built", 0) + 1
+    with _STATE_LOCK:
+        BUILD_INFO["seconds"] = time.perf_counter() - t0
     if failed:
         raise KernelError("\n".join(failed))
     return paths
@@ -254,7 +263,8 @@ def probe(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = _lib().z2_probe(x.data_ptr(), out.data_ptr(), x.numel(), stream_of(x))
     check_launch(rc, "z2_probe")
-    LAUNCHES["probe"] += 1
+    with _STATE_LOCK:
+        LAUNCHES["probe"] += 1
     return out
 
 
@@ -279,7 +289,7 @@ def _f_tiles(f0: float, df: float, n_tiles: int, dtype, device, tile0: int = 0) 
 def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
                            half_fdots: torch.Tensor, n_tiles: int, nharm: int,
                            event_chunk: int = EVENT_CHUNK, sixth_fddots: torch.Tensor | None = None,
-                           weights: torch.Tensor | None = None, poly: bool = True,
+                           weights: torch.Tensor | None = None, poly: bool | None = None,
                            per_split: int | None = None, tile0: int = 0) -> torch.Tensor:
     """Plain twin of K2: (2, n_fdot, n_tiles, nharm, TRIAL_TILE) f32 sums, or
     (2, n_fddot, n_fdot, n_tiles, nharm, TRIAL_TILE) with ``sixth_fddots``,
@@ -292,7 +302,10 @@ def z2_tile_sums_reference(times: torch.Tensor, f0: float, df: float,
     accumulate in f32 across chunks, as the Pallas kernel does. With
     ``per_split`` the events are cut into ranges of that many, each summed
     from zero, and the ranges added in order, as the kernel's split plan.
+    ``poly`` None resolves through ``fasttrig.poly_trig_enabled`` on the
+    times' device.
     """
+    poly = fasttrig.poly_trig_enabled(poly, times.device)
     n = times.shape[0]
     if per_split is not None and per_split < n:
         parts = [z2_tile_sums_reference(times[e0:e0 + per_split], f0, df, half_fdots, n_tiles,
@@ -352,7 +365,7 @@ def _check_f64_vector(x: torch.Tensor, name: str, device: torch.device) -> None:
 
 def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Tensor,
                  n_tiles: int, nharm: int, *, sixth_fddots: torch.Tensor | None = None,
-                 weights: torch.Tensor | None = None, poly: bool = True,
+                 weights: torch.Tensor | None = None, poly: bool | None = None,
                  per_split: int | None = None, tile0: int = 0, splits: bool = False) -> torch.Tensor:
     """f32 trig sums over the grid f0 + ((tile0 + tile)*TRIAL_TILE + j_lo)*df for each
     fdot row, (2, n_fdot, n_tiles, nharm, TRIAL_TILE), or for each (fddot,
@@ -361,7 +374,8 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     on a CPU tensor.
 
     ``weights`` (f32 per event) multiply every harmonic's terms; ``poly``
-    picks the polynomial sin/cos (True) or f32 sin/cos of 2*pi*frac;
+    picks the polynomial sin/cos (True) or f32 sin/cos of 2*pi*frac (None:
+    ``fasttrig.poly_trig_enabled`` on the times' device);
     ``per_split`` fixes the event split length (a multiple of EVENT_CHUNK;
     default: enough splits to fill the card); ``tile0`` > 0 computes the
     tiles [tile0, tile0 + n_tiles) of the grid that starts at ``f0``, the
@@ -373,6 +387,7 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
     """
     if times.dtype != torch.float64 or times.dim() != 1 or not times.is_contiguous():
         raise ValueError("z2_tile_sums takes contiguous 1-D float64 times")
+    poly = fasttrig.poly_trig_enabled(poly, times.device)
     _check_f64_vector(half_fdots, "half_fdots", times.device)
     n_fddot = 1
     if sixth_fddots is not None:
@@ -425,7 +440,8 @@ def z2_tile_sums(times: torch.Tensor, f0: float, df: float, half_fdots: torch.Te
             partial.data_ptr(), out.data_ptr(), stream,
         )
     check_launch(rc, "z2_grid_sums")
-    LAUNCHES["z2_tile_sums"] += 1
+    with _STATE_LOCK:
+        LAUNCHES["z2_tile_sums"] += 1
     if splits:
         stacked = partial if n_split > 1 else out[None]
         return stacked[:, :, 0] if sixth_fddots is None else stacked

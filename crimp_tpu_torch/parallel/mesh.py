@@ -675,7 +675,7 @@ def z2_sharded(times, freqs, nharm: int = 2, mesh: Mesh | None = None, trig_dtyp
     mesh = default_dispatch_mesh() if mesh is None else mesh
     c, s, _ = _sharded_sums_nd(times, freqs, (0.0,), nharm, mesh, trig_dtype, use_fastpath, poly, use_mxu,
                                reseed, mxu_bf16, per_split, tile0)
-    return _materialize(torch.sum(search.z2_from_sums(c[0], s[0], np.shape(times)[0]), dim=0))
+    return _materialize(torch.sum(search.z2_from_sums(c[0], s[0], np.shape(times)[0]), dim=0))  # graftlint: disable=GL005 (sums the replicated nharm axis, not the sharded event axis; per-trial order is fixed and the 8-device bitwise pin covers it)
 
 
 def h_sharded(times, freqs, nharm: int = 20, mesh: Mesh | None = None, trig_dtype=None,
@@ -704,7 +704,7 @@ def z2_2d_sharded(times, freqs, fdots, nharm: int = 2, mesh: Mesh | None = None,
     mesh = default_dispatch_mesh() if mesh is None else mesh
     c, s, _ = _sharded_sums_nd(times, freqs, fdots, nharm, mesh, trig_dtype, use_fastpath, poly, use_mxu,
                                reseed, mxu_bf16, per_split, tile0)
-    return _materialize(torch.sum(search.z2_from_sums(c, s, np.shape(times)[0]), dim=1))
+    return _materialize(torch.sum(search.z2_from_sums(c, s, np.shape(times)[0]), dim=1))  # graftlint: disable=GL005 (sums the replicated nharm axis, not the sharded event axis; per-trial order is fixed and the 8-device bitwise pin covers it)
 
 
 def z2_3d_sharded(times, freqs, fdots, fddots, nharm: int = 2, mesh: Mesh | None = None,
@@ -727,7 +727,7 @@ def z2_3d_sharded(times, freqs, fdots, fddots, nharm: int = 2, mesh: Mesh | None
                                                poly=poly, device=home_device(mesh), per_split=per_split))
     c, s = grid_sums_sharded(times, grid[0], grid[1], len(freqs), fdots, fddots, nharm, mesh, poly, use_mxu,
                              reseed, mxu_bf16, per_split, tile0)
-    return _materialize(torch.sum(search.z2_from_sums(c, s, np.shape(times)[0]), dim=2))
+    return _materialize(torch.sum(search.z2_from_sums(c, s, np.shape(times)[0]), dim=2))  # graftlint: disable=GL005 (sums the replicated nharm axis, not the sharded event axis; per-trial order is fixed and the 8-device bitwise pin covers it)
 
 
 def semicoherent_stack_sharded(seg_times, seg_weights, f0: float, df: float, n_freq: int, fdots, fddots,
@@ -759,7 +759,7 @@ def semicoherent_stack_sharded(seg_times, seg_weights, f0: float, df: float, n_f
     if nharm > z2_grid.MAX_NHARM:
         raise ValueError(f"the uniform-grid kernel takes nharm <= {z2_grid.MAX_NHARM}")
     per = n_seg // len(slots)
-    counts = seg_weights.sum(axis=1)
+    counts = seg_weights.sum(axis=1)  # graftlint: disable=GL005 (exact integer-valued total of the 0/1 weight mask; order-insensitive at the bit level)
     fdots = np.atleast_1d(np.asarray(fdots, dtype=np.float64))
     fddots = np.atleast_1d(np.asarray(fddots, dtype=np.float64))
     n_rows = len(fdots) * len(fddots)
@@ -784,7 +784,7 @@ def semicoherent_stack_sharded(seg_times, seg_weights, f0: float, df: float, n_f
                                           weights=search.as_weights(seg_weights[i], dev), poly=poly,
                                           per_split=per_split, tile0=tile0)
                 cs = search.tiles_to_freqs(cs, n_freq)
-                term = torch.sum(search.z2_from_sums(cs[0], cs[1], max(float(counts[i]), 1.0)), dim=2)
+                term = torch.sum(search.z2_from_sums(cs[0], cs[1], max(float(counts[i]), 1.0)), dim=2)  # graftlint: disable=GL005 (sums the replicated nharm axis inside one segment, not the sharded segment axis)
                 local = term if local is None else local + term
             if local is not None:
                 jobs[(0, k)] = [local]

@@ -232,7 +232,7 @@ def delta_basis(fit_tm, x_mjd, device=None):
     t = np.atleast_1d(np.asarray(x_mjd, dtype=np.float64))
     pepoch = float(fit_tm.pepoch)
     delta_sec = np.asarray(
-        (np.asarray(t, dtype=np.longdouble) - np.longdouble(pepoch)) * np.longdouble(anchored.SECONDS_PER_DAY),
+        (np.asarray(t, dtype=np.longdouble) - np.longdouble(pepoch)) * np.longdouble(anchored.SECONDS_PER_DAY),  # graftlint: disable=GL004 (host-side epoch-delta in anchored.py's longdouble convention; only the rounded f64 result reaches the device basis)
         dtype=np.float64,
     )
     fb = deltafold.build_basis(fit_tm, np.asarray([pepoch]), delta_sec, np.zeros(t.size, dtype=np.int64),

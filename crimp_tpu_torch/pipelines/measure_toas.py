@@ -26,6 +26,14 @@ from crimp_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
+# the ToA table's columns, in file order
+TOA_COLUMNS = [
+    "ToA", "ToA_mid", "ToA_start", "ToA_end", "ToA_lenInt", "ToA_exp",
+    "nbr_events", "count_rate", "phShift", "phShift_LL", "phShift_UL",
+    "Hpower", "redChi2",
+]
+
+
 def measure_toas(
     evtFile: str,
     timMod: str,
@@ -132,11 +140,7 @@ def measure_toas(
 
     # ---- outputs ---------------------------------------------------------
     with open(toaFile + ".txt", "w") as fh:
-        fh.write(
-            "ToA \t ToA_mid \t ToA_start \t ToA_end \t ToA_lenInt \t ToA_exp \t "
-            "nbr_events \t count_rate \t phShift \t phShift_LL \t phShift_UL \t "
-            "Hpower \t redChi2\n"
-        )
+        fh.write(" \t ".join(TOA_COLUMNS) + "\n")
         for out_i, ii in enumerate(idx_list):
             fh.write(
                 f"{ii}\t{toa_mids[out_i]}\t{starts[ii]}\t{ends[ii]}\t"
@@ -251,3 +255,7 @@ def plot_phase_residuals(toa_mjds, ph_shifts, ph_lls, ph_uls, outFile: str = "")
     fig.savefig(path, format="pdf")
     plt.close(fig)
     return path
+
+
+# Reference-named alias (measureToAs.py:64), as in the JAX package.
+measureToAs = measure_toas

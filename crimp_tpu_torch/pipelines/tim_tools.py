@@ -69,3 +69,7 @@ def phshift_to_timfile(
     )
     tim_io.write_tim(timfile, table, clobber=clobber)
     return table
+
+
+# Reference-named alias (timfile.py:164), as in the JAX package.
+phshiftTotimfile = phshift_to_timfile

@@ -19,6 +19,11 @@ def set_default_device(device: str | None) -> None:
     _DEFAULT = device
 
 
+def default_device() -> torch.device:
+    """What ``device=None`` means, without checking that it is present."""
+    return torch.device(_DEFAULT or "cuda")
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda`` (raising when no card is present) unless a
     script forced the CPU, else as given."""

@@ -162,7 +162,7 @@ def nccl_probe() -> dict:
 
     from crimp_tpu_torch.ops import z2_grid
     from crimp_tpu_torch.parallel import mesh as pmesh
-    from crimp_tpu_torch.parallel import multihost
+    from crimp_tpu_torch.parallel import multihost, registry
 
     t_ev = _grid_events()
     fdots = np.array([-2e-14, -1e-14])
@@ -175,7 +175,8 @@ def nccl_probe() -> dict:
         pidx, pcount = multihost.ensure_distributed()
         backend = torch.distributed.get_backend()
         smesh = multihost.global_source_mesh()
-        got_rows = multihost.fetch_global(multihost.global_array(rows, smesh, (pmesh.SOURCE_AXIS,)))
+        got_rows = multihost.fetch_global(multihost.global_array(
+            rows, smesh, registry.specs_for("source_batch", smesh).spec("rows")))
         gmesh = multihost.global_grid_mesh()
         gmesh = pmesh.Mesh(gmesh.devices.reshape(-1).reshape(2, 2), (pmesh.EVENT_AXIS, pmesh.TRIAL_AXIS),
                            group=gmesh.group)

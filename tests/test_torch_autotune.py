@@ -137,7 +137,7 @@ class TestResolvePrecedence:
 
     def test_the_search_runs_under_the_cached_plan(self, monkeypatch):
         t = np.sort(np.random.RandomState(5).uniform(0.0, 200.0, 3000))
-        key = autotune.cache_key("grid", True, 3000, 400)
+        key = autotune.cache_key("grid", False, 3000, 400)  # the CPU's default trig
         autotune._store_entry(key, {"event_block": 1024, "trial_block": 256})
         seen = []
         real = z2_grid.z2_tile_sums
@@ -282,7 +282,7 @@ class TestTuneRoundTrip:
         t = np.sort(np.random.RandomState(5).uniform(0.0, 200.0, 3000))
         search.z2_power_grid(t, 0.2, 1e-5, 300, nharm=2, device="cpu")
         entries = json.loads(caches["port"].read_text())["entries"]
-        assert autotune.cache_key("grid", True, 3000, 300) in entries
+        assert autotune.cache_key("grid", False, 3000, 300) in entries  # the CPU's default trig
 
     def test_auto_mode_never_times_implicitly(self, monkeypatch):
         def boom(*a, **k):

@@ -53,13 +53,16 @@ class TestCubeAgainstJax:
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
         assert int(np.argmax(got)) == int(np.argmax(ref))
 
-    def test_h_cube_matches_jax_grid(self, cube):
+    @pytest.mark.parametrize("poly", [None, True], ids=["default", "polynomial"])
+    def test_h_cube_matches_jax_grid(self, cube, poly):
+        """Each side's default trig, and the polynomial asked for on both sides."""
         sec, freqs, fdots, fddots = cube
         f0, df = freqs[0], float(freqs[1] - freqs[0])
+        kw = {} if poly is None else {"poly": poly}
         ref = np.asarray(jax_search.h_power_3d_grid(sec, f0, df, len(freqs), fdots[1:],
-                                                    fddots[1:], 5, poly=True, mxu=False))
+                                                    fddots[1:], 5, mxu=False, **kw))
         got = search.h_power_3d_grid(sec, f0, df, len(freqs), fdots[1:], fddots[1:], 5,
-                                     device="cpu").numpy()
+                                     device="cpu", **kw).numpy()
         np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
         assert int(np.argmax(got)) == int(np.argmax(ref))
 
@@ -99,15 +102,18 @@ class TestCubePins:
 
 
 class TestThreedZtest:
-    def test_rows_order_and_values_match_jax(self, sim_events):
+    @pytest.mark.parametrize("poly_trig", [None, True], ids=["default", "polynomial"])
+    def test_rows_order_and_values_match_jax(self, sim_events, poly_trig):
         """Row order (tests/test_search.py:892-911): outer fddot, then fdot,
-        then freq; the fdot axis is log10 spin-down, the fddot axis signed."""
+        then freq; the fdot axis is log10 spin-down, the fddot axis signed.
+        Each package's default trig on the CPU (hardware sin/cos), and the
+        polynomial asked for explicitly."""
         freqs = np.linspace(0.2495, 0.2505, 65)
         log_fdots, fdd = np.array([-12.0, -11.0]), np.array([-1e-16, 1e-16])
-        ref, ref_df = jax_search.PeriodSearch(sim_events[::4], freqs, 2, poly_trig=True).threed_ztest(
+        ref, ref_df = jax_search.PeriodSearch(sim_events[::4], freqs, 2, poly_trig=poly_trig).threed_ztest(
             log_fdots, fdd)
-        rows, table = search.PeriodSearch(sim_events[::4], freqs, 2, device="cpu").threed_ztest(
-            log_fdots, fdd)
+        rows, table = search.PeriodSearch(sim_events[::4], freqs, 2, poly_trig=poly_trig,
+                                          device="cpu").threed_ztest(log_fdots, fdd)
         assert list(table) == list(ref_df.columns) == ["Freq", "Freq_dot", "Freq_ddot", "Z2pow"]
         assert rows.shape == ref.shape == (65 * 2 * 2, 4)
         np.testing.assert_array_equal(rows[:, :3], ref[:, :3])

@@ -29,7 +29,7 @@ SUFFIXES = {"GRID_FASTPATH", "GRID_MXU", "STREAM_MIN_EVENTS", "TOA_DENSE_WINDOW"
             "MULTISOURCE_BATCH", "OBS", "OBS_DIR", "OBS_EVENTS", "OBS_HEARTBEAT_S", "OBS_HOST", "FAULTS",
             "AUTOTUNE", "AUTOTUNE_CACHE", "SERVE_QUEUE", "SERVE_DEADLINE_MS", "SERVE_BREAKER", "SERVE_WARM_BATCH",
             "SERVE_PREP_OVERLAP", "GRID_BLOCKS", "MXU_BF16", "OBS_COST", "OBS_LEDGER", "RETRIES", "BACKOFF_S",
-            "COMPILE_CACHE", "TRACE_DIR", "SHARD", "DIST"}
+            "COMPILE_CACHE", "TRACE_DIR", "SHARD", "DIST", "POLY_TRIG", "HBM_WARN_PCT"}
 
 
 @pytest.fixture(autouse=True)
@@ -45,9 +45,11 @@ class TestRegistry:
         assert {name[len(knobs.PREFIX):] for name in knobs.REGISTRY} == SUFFIXES
         for name, k in knobs.REGISTRY.items():
             ref = jax_knobs.REGISTRY["CRIMP_TPU_" + name[len(knobs.PREFIX):]]
-            # the port keeps its own verdict-cache file, and its compile
-            # cache is the nvcc build directory of the checkout
+            # the port keeps its own verdict-cache file, its compile cache is
+            # the nvcc build directory of the checkout, and the card plays the
+            # TPU's part in the poly-trig auto rule
             default = ref.default.replace("jax process index", "torch.distributed rank").replace(
+                "auto (on for TPU backends)", "auto (on for the card, off on the CPU)").replace(
                 "/crimp_tpu/", "/crimp_tpu_torch/").replace("~/.cache/crimp_tpu_torch/jax_cache",
                                                             "build/kernels (in the checkout)")
             assert (k.kind, k.default, k.numeric) == (ref.kind, default, ref.numeric), name

@@ -153,7 +153,13 @@ class TestNorthStarSmall:
         np.testing.assert_array_equal(times, ref_times)
         assert len(intervals["ToA_tstart"]) == len(ref_int) == 84
 
-    def test_path_matches_jax(self):
+    @pytest.mark.parametrize("poly_trig", [None, True], ids=["default", "polynomial"])
+    def test_path_matches_jax(self, poly_trig, monkeypatch):
+        """The north-star path against JAX's: each package's default trig on
+        the CPU (hardware sin/cos), and the polynomial asked for through the
+        knob (the port's north star takes no trig argument)."""
+        if poly_trig:
+            monkeypatch.setenv("CRIMP_TORCH_POLY_TRIG", "1")
         times, intervals = surrogate.build_surrogate(PAR, TOA_INTERVALS, TEMPLATE, events_per_toa=10000, seed=7)
         intervals = {k: v[:2] for k, v in intervals.items()}
         times = times[times <= intervals["ToA_tend"][-1]]
@@ -162,7 +168,7 @@ class TestNorthStarSmall:
 
         sec = (times - times.mean()) * 86400.0
         freqs = np.linspace(0.1430, 0.1436, 300)
-        rows_ref, _ = jax_search.PeriodSearch(sec, freqs, 2, poly_trig=True).twod_ztest(
+        rows_ref, _ = jax_search.PeriodSearch(sec, freqs, 2, poly_trig=poly_trig).twod_ztest(
             np.linspace(-14.5, -13.5, 3))
         np.testing.assert_array_equal(out["rows"][:, :2], rows_ref[:, :2])
         np.testing.assert_allclose(out["rows"][:, 2], rows_ref[:, 2], rtol=2e-3, atol=0.05)

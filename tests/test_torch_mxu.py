@@ -109,9 +109,10 @@ class TestFactorizedBudget:
         freqs = np.linspace(0.1432820, 0.1432830, 256)
         f0, df = search.uniform_grid(freqs)
         truth = search.z2_power(t, freqs, 2, trig_dtype=torch.float64, device="cpu").numpy()
-        exact = np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu").numpy() - truth))
-        dev = {rs: np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu", mxu=True,
-                                                       reseed=rs).numpy() - truth))
+        exact = np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu",
+                                                   poly=True).numpy() - truth))
+        dev = {rs: np.max(np.abs(search.z2_power_grid(t, f0, df, 256, 2, device="cpu", poly=True,
+                                                       mxu=True, reseed=rs).numpy() - truth))
                for rs in (search.GRID_MXU_RESEED, 16)}
         assert search.GRID_MXU_RESEED == 64
         assert truth.max() > 2e4
@@ -121,9 +122,12 @@ class TestFactorizedBudget:
 
 class TestDefaultArguments:
     """The factorized grids at their default arguments (no ``reseed=``) in
-    both packages, at test_1d_parity's budget and argmax check, the
-    polynomial pair on both sides; the port's default is its reseed=64 call
-    bit for bit, and 64 is what crimp_tpu resolves with no tuner cache."""
+    both packages, at test_1d_parity's budget and argmax check, with each
+    side's default trig and with the polynomial pair on both sides; the
+    port's default is its reseed=64 call bit for bit, and 64 is what
+    crimp_tpu resolves with no tuner cache."""
+
+    TRIG = pytest.mark.parametrize("poly", [None, True], ids=["default", "polynomial"])
 
     @staticmethod
     def check(port_fn, jax_fn, nharm):
@@ -136,26 +140,31 @@ class TestDefaultArguments:
         np.testing.assert_array_equal(got, port_fn(reseed=64).numpy())
         assert autotune.grid_mxu_defaults()["reseed"] == search.GRID_MXU_RESEED
 
-    def test_1d(self, sec):
+    @TRIG
+    def test_1d(self, sec, poly):
         freqs = np.linspace(0.2495, 0.2505, 733)
         f0, df = freqs[0], float(freqs[1] - freqs[0])
-        self.check(lambda **kw: search.z2_power_grid(sec, f0, df, len(freqs), 3, device="cpu", mxu=True,
-                                                     **kw),
-                   lambda: jax_search.z2_power_grid(sec, f0, df, len(freqs), 3, poly=True, mxu=True), 3)
+        kw = {} if poly is None else {"poly": poly}
+        self.check(lambda **r: search.z2_power_grid(sec, f0, df, len(freqs), 3, device="cpu", mxu=True,
+                                                    **kw, **r),
+                   lambda: jax_search.z2_power_grid(sec, f0, df, len(freqs), 3, mxu=True, **kw), 3)
 
-    def test_2d(self, sec):
+    @TRIG
+    def test_2d(self, sec, poly):
         fdots = np.array([-1e-11, 0.0, 1e-11])
-        self.check(lambda **kw: search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, device="cpu",
-                                                        mxu=True, **kw),
-                   lambda: jax_search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, poly=True,
-                                                       mxu=True), 3)
+        kw = {} if poly is None else {"poly": poly}
+        self.check(lambda **r: search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, device="cpu",
+                                                       mxu=True, **kw, **r),
+                   lambda: jax_search.z2_power_2d_grid(sec, 0.2496, 1e-6, 301, fdots, 3, mxu=True, **kw), 3)
 
-    def test_3d(self, sec):
+    @TRIG
+    def test_3d(self, sec, poly):
         fdots, fddots = np.array([-2e-7, 0.0, 2e-7]), np.array([-3e-11, 0.0, 3e-11])
-        self.check(lambda **kw: search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2,
-                                                        device="cpu", mxu=True, **kw),
-                   lambda: jax_search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2, poly=True,
-                                                       mxu=True), 2)
+        kw = {} if poly is None else {"poly": poly}
+        self.check(lambda **r: search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2,
+                                                       device="cpu", mxu=True, **kw, **r),
+                   lambda: jax_search.z2_power_3d_grid(sec, 0.2495, 1e-5, 97, fdots, fddots, 2,
+                                                       mxu=True, **kw), 2)
 
 
 class TestFactorizedPieces:

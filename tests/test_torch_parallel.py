@@ -203,7 +203,7 @@ class TestMeshInvariance:
                                        per_split=8192)
         h = search.h_from_sums(c[0, 0], s[0, 0], len(events), dim=0).numpy()
         np.testing.assert_array_equal(h, search.h_power_grid(events, f0, df, n_freq, 4, per_split=8192,
-                                                             device="cpu").numpy())
+                                                             poly=True, device="cpu").numpy())
 
     def test_grid_mesh_shapes_agree(self, events):
         freqs = np.linspace(0.1422, 0.1442, 1101)  # odd: no trial split divides it

@@ -81,7 +81,7 @@ class TestChunkedIsWhole:
         assert got.shape == (freqs.size,)
         grid = search.uniform_grid(freqs)
         whole = (search.z2_power_grid(events, *grid, freqs.size, 2, device="cpu") if grid
-                 else search.z2_power(events, freqs, 2, poly=True, device="cpu"))
+                 else search.z2_power(events, freqs, 2, poly=False, device="cpu"))
         np.testing.assert_array_equal(got, whole.numpy())
 
     @pytest.mark.parametrize("freqs", [UNIFORM, WARPED], ids=["uniform", "nonuniform"])
@@ -89,7 +89,7 @@ class TestChunkedIsWhole:
         got = scan(events, freqs, nharm=2, fdots=FDOTS).run()
         grid = search.uniform_grid(freqs)
         whole = (search.z2_power_2d_grid(events, *grid, freqs.size, FDOTS, 2, device="cpu") if grid
-                 else search.z2_power_2d(events, freqs, FDOTS, 2, poly=True, device="cpu"))
+                 else search.z2_power_2d(events, freqs, FDOTS, 2, poly=False, device="cpu"))
         assert got.shape == (2, freqs.size)
         np.testing.assert_array_equal(got, whole.numpy())
 
@@ -108,7 +108,7 @@ class TestChunkedIsWhole:
         got = scan(events, freqs, nharm=2, fdots=FDOTS, fddots=FDDOTS).run()
         grid = search.uniform_grid(freqs)
         whole = (search.z2_power_3d_grid(events, *grid, freqs.size, FDOTS, FDDOTS, 2, device="cpu") if grid
-                 else search.z2_power_3d(events, freqs, FDOTS, FDDOTS, 2, poly=True, device="cpu"))
+                 else search.z2_power_3d(events, freqs, FDOTS, FDDOTS, 2, poly=False, device="cpu"))
         assert got.shape == (2, 2, freqs.size)
         np.testing.assert_array_equal(got, whole.numpy())
 
@@ -245,10 +245,11 @@ class TestStoreFingerprint:
         first = scan(events, nharm=2, store=store)
         power = first.run()
         sorted((tmp_path / "ckpt").glob("chunk_*.npy"))[0].unlink()
-        # a re-tuned winner lands between sessions: a preference drift
-        autotune._store_entry(autotune.cache_key("grid", True, events.size, UNIFORM.size),
+        # a re-tuned winner lands between sessions: a preference drift (the
+        # CPU's default trig, the scan's, keys the entry)
+        autotune._store_entry(autotune.cache_key("grid", False, events.size, UNIFORM.size),
                               {"event_block": 1024, "trial_block": 256})
-        assert autotune.resolve_blocks("grid", events.size, UNIFORM.size, True, device="cpu") == (1024, 256)
+        assert autotune.resolve_blocks("grid", events.size, UNIFORM.size, False, device="cpu") == (1024, 256)
         with caplog.at_level(logging.WARNING, logger="crimp_tpu_torch.ops.resumable"):
             resumed = scan(events, nharm=2, store=store)
         assert resumed._blocks == first._blocks
@@ -262,10 +263,10 @@ class TestStoreFingerprint:
 
     def test_explicit_poly_conflict_refuses(self, events, tmp_path):
         store = str(tmp_path / "ckpt")
-        scan(events, nharm=2, store=store).run()
-        assert scan(events, nharm=2, store=store, poly=True).poly
+        scan(events, nharm=2, store=store).run()  # the CPU's default: hardware sin/cos
+        assert not scan(events, nharm=2, store=store, poly=False).poly
         with pytest.raises(ValueError, match="fingerprint mismatch"):
-            scan(events, nharm=2, store=store, poly=False)
+            scan(events, nharm=2, store=store, poly=True)
 
     @pytest.mark.parametrize("cube", [False, True])
     def test_mxu_mode_pinned_adopted_and_conflict_refused(self, events, tmp_path, monkeypatch, cube):

@@ -138,11 +138,14 @@ class TestSegmentHFromModel:
 
 
 class TestPeriodSearchSemicoherent:
-    def test_rows_and_peak_match_jax(self, pulsed_events):
+    @pytest.mark.parametrize("poly_trig", [None, True], ids=["default", "polynomial"])
+    def test_rows_and_peak_match_jax(self, pulsed_events, poly_trig):
+        """Each side's default trig, and the polynomial asked for on both sides."""
         freqs = np.linspace(0.2496, 0.2504, 65)
-        ref, ref_df = jax_search.PeriodSearch(pulsed_events, freqs, 2, poly_trig=True).semicoherent_ztest(
+        ref, ref_df = jax_search.PeriodSearch(pulsed_events, freqs, 2, poly_trig=poly_trig).semicoherent_ztest(
             np.array([-12.0]), np.array([0.0]), n_segments=4)
-        rows, table = search.PeriodSearch(pulsed_events, freqs, 2, device="cpu").semicoherent_ztest(
+        rows, table = search.PeriodSearch(pulsed_events, freqs, 2, poly_trig=poly_trig,
+                                          device="cpu").semicoherent_ztest(
             np.array([-12.0]), np.array([0.0]), n_segments=4)
         assert list(table) == list(ref_df.columns) and rows.shape == (65, 4)
         np.testing.assert_array_equal(rows[:, :3], ref[:, :3])
