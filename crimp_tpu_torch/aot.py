@@ -9,7 +9,8 @@ ahead of time; the port's equivalent is the work a first call pays:
   each trig path asked (and of K3 where asked: ``general=True``, or an
   nharm K2 cannot take), which loads the module and its instantiations;
 - the MCMC's CUDA-graph capture at its shapes;
-- one call of the batched ToA fit at its shapes.
+- one call of the batched ToA fit at its shapes (K5's profile sweeps on
+  the card).
 
 ``warmup`` returns JAX's report: ``targets`` (name -> {"s": seconds} or
 {"error": ...}), ``total_s`` and ``counters`` (what was compiled:

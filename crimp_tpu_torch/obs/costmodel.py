@@ -9,8 +9,10 @@ into achieved FLOP/s, bytes/s and a share of the card's roofline. XLA's
 - **the hand kernels' own formulas**, the ones ``PERF.md``'s bounds use:
   K2 ``z2_grid.flops_per_pair`` per (trial, event) pair (:func:`k2_counts`),
   K3 the f32 operations of ``z2_general.ops_per_pair`` (:func:`k3_counts`),
-  K4 B*E*(P + 2)*8 bytes (:func:`k4_counts`); bytes count each input read
-  once and each output written once;
+  K4 B*E*(P + 2)*8 bytes (:func:`k4_counts`), K5 the f64 operations of a
+  profile sweep (:func:`k5_counts`, held to the f64 peak through the row's
+  ``flops_dtype``); bytes count each input read once and each output
+  written once;
 - **the tensors themselves** for ``argument_bytes`` and ``output_bytes``;
 - **``torch.utils.flop_counter.FlopCounterMode``** for torch code, by
   running the function once on ``meta`` tensors (no data, no card work);
@@ -184,6 +186,9 @@ def analyze(fn, args: tuple, kwargs: dict, counts=None, out=None, plan=None) -> 
         for field in ("flops", "bytes_accessed", "transcendentals"):
             if isinstance(counts.get(field), (int, float)):
                 row[field] = float(counts[field])
+        if counts.get("flops_dtype"):
+            # the peak the roofline holds these operations to (PEAKS' flops_<dtype>)
+            row["flops_dtype"] = str(counts["flops_dtype"])
         row["flops_source"] = "formula"
     elif fn is not None:
         row["flops"] = meta_flops(fn, args, kwargs)
@@ -274,6 +279,47 @@ def k4_counts(n_rows: int, n_events: int, n_params: int) -> dict:
     2*B*E*P f64 FLOPs (one FMA per basis element)."""
     return {"flops": 2.0 * n_rows * n_events * n_params,
             "bytes_accessed": 8.0 * n_rows * n_events * (n_params + 2)}
+
+
+# f64 operations per (row, phase, masked event) of a K5 sweep, by part
+K5_SHAPE_OPS = {"fourier": lambda k: 4 * k, "vonmises": lambda k: 7 * k, "cauchy": lambda k: 6 * k}
+K5_NEWTON_OPS = 5  # a + s, 1 / (a + s), its square, two sums
+K5_JOINT_OPS = 12  # a + b s (2), 1 / (.), inv s, three products, five sums
+K5_LL_OPS = 6  # a + b s (2), the minimum, the clamp, log, the sum
+
+
+def k5_ops_per_event(n_comp: int, kind: str, mode: int, newton_iters: int, bf16: bool = False) -> int:
+    """f64 operations of one K5 sweep per (row, phase, masked event): the
+    shape term (Fourier 2K products and 2K sums; von Mises per component two
+    differences, cos, a product, exp, a product and a sum; Cauchy two
+    differences, cos, a difference, a division and a sum; none in f64 for a
+    bf16 Fourier sweep, whose shape runs in f32), the masked minimum (1),
+    the norm solve (mode 0: ``newton_iters`` steps of 5; mode 1:
+    ``2 * newton_iters`` steps of 12; mode 2: none) and the log-sum (6)."""
+    shape = 0 if (bf16 and kind == "fourier") else K5_SHAPE_OPS[kind](int(n_comp))
+    solve = {0: K5_NEWTON_OPS * newton_iters, 1: K5_JOINT_OPS * 2 * newton_iters, 2: 0}[int(mode)]
+    return shape + 1 + solve + K5_LL_OPS
+
+
+def k5_counts(n_rows: int, n_phis: int, n_events: float, n_comp: int, kind: str, mode: int,
+              newton_iters: int, bf16: bool = False) -> dict:
+    """K5, one profile sweep over S = ``n_rows`` segment rows x P =
+    ``n_phis`` phases, ``n_events`` the masked events a row (the mean for
+    ragged rows: the work is what the data needs, not the padding).
+
+    Operations: ``k5_ops_per_event`` per (row, phase, event), f64. The
+    convention: an add, a multiply, a comparison, a division, an exp, a log
+    and a cos each count as ONE operation (a multiply-add as two), so the
+    bound at the 34 TFLOP/s f64 peak is a true lower bound: on the card a
+    division, exp, log or cos is a sequence of several f64 instructions.
+    The per-row work that does not scale with P (the Fourier per-event
+    coefficients) is left out. Bytes: the phases (8) and mask (1) of every
+    event, exposure, the phases' grid and the template read once, and LL,
+    A and b written: S N 9 + S 8 + S P 8 + 3 S P 8."""
+    S, P = float(n_rows), float(n_phis)
+    ops = S * P * float(n_events) * k5_ops_per_event(n_comp, kind, mode, newton_iters, bf16)
+    nbytes = S * float(n_events) * 9 + S * 8 + S * P * 8 + 8 * (3 * n_comp + 2) + 3 * S * P * 8
+    return {"flops": ops, "bytes_accessed": nbytes, "flops_dtype": "f64"}
 
 
 # -- disk tier (the autotune cache file, "cost|" keys) -----------------------------

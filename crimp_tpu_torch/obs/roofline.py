@@ -13,7 +13,9 @@ kernel). A share above 100% is a counting fault, never a result.
 Peak table: the NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense rates
 without sparsity, at the 700 W power limit): 67 TFLOP/s in f32 outside the
 tensor cores, the rate ``PERF.md``'s bounds use for K2 and K3 (K4's
-bound is its bytes), 3.35 TB/s of HBM3, 900 GB/s of NVLink (no one-card
+bound is its bytes), 34 TFLOP/s in f64 outside the tensor cores
+(``flops_f64``, which rows with ``flops_dtype`` "f64" meet: K5), 3.35 TB/s
+of HBM3, 900 GB/s of NVLink (no one-card
 row uses it). A card set below 700 W runs slower under load: read a share
 beside the card's power limit. The CPU entry is JAX's order-of-magnitude
 placeholder, kept so CPU runs render; its share is a sanity indicator, not
@@ -34,9 +36,9 @@ from crimp_tpu_torch.obs.manifest import span_paths
 # device kind substring (lowercased, first match wins) -> per-card peaks;
 # then the backend name ("cpu")
 PEAKS: tuple[tuple[str, dict], ...] = (
-    ("h100", {"flops": 67e12, "bytes_per_s": 3.35e12, "ici_bytes_per_s": 900e9,
-              "source": "NVIDIA H100 SXM data sheet (f32 67 TFLOP/s outside the tensor cores, "
-                        "HBM3 3.35 TB/s, NVLink 900 GB/s; 700 W)"}),
+    ("h100", {"flops": 67e12, "flops_f64": 34e12, "bytes_per_s": 3.35e12, "ici_bytes_per_s": 900e9,
+              "source": "NVIDIA H100 SXM data sheet (f32 67 TFLOP/s and f64 34 TFLOP/s outside the "
+                        "tensor cores, HBM3 3.35 TB/s, NVLink 900 GB/s; 700 W)"}),
     ("cpu", {"flops": 1e11, "bytes_per_s": 5e10,
              "ici_bytes_per_s": 1e10,
              "dcn_bytes_per_s": 1e9,
@@ -124,7 +126,6 @@ def analyze(doc: dict) -> dict:
     kind = (devices[0] or {}).get("kind") if devices else None
     peak = peak_for(plat)
     durs = _leaf_rollup(doc)
-    ridge = (peak["flops"] / peak["bytes_per_s"]) if peak else None
     rows = []
     for name, cost in sorted((doc.get("costmodel") or {}).items()):
         if not isinstance(cost, dict):
@@ -157,9 +158,13 @@ def analyze(doc: dict) -> dict:
                      and isinstance(nbytes, (int, float)) and nbytes else None)
         pct = None
         bound = None
+        # a row counting operations of another type (K5: f64) meets that
+        # type's peak where the table has one
+        dtype = cost.get("flops_dtype")
+        peak_flops = (peak.get(f"flops_{dtype}") or peak["flops"]) if peak else None
         if peak and intensity is not None:
-            roof = min(peak["flops"], intensity * peak["bytes_per_s"])
-            bound = "compute" if intensity >= ridge else "memory"
+            roof = min(peak_flops, intensity * peak["bytes_per_s"])
+            bound = "compute" if intensity >= peak_flops / peak["bytes_per_s"] else "memory"
             if fps is not None and roof > 0:
                 pct = 100.0 * fps / roof
         ndev = cost.get("devices")
@@ -186,7 +191,7 @@ def analyze(doc: dict) -> dict:
             # bandwidth) vs the time the compute/memory roofline grants
             # the kernel body — whichever dominates names the binding
             # resource
-            t_roof = max(flops / peak["flops"], nbytes / peak["bytes_per_s"])
+            t_roof = max(flops / peak_flops, nbytes / peak["bytes_per_s"])
             t_ici = coll_ici / peak["ici_bytes_per_s"]
             t_dcn = ((coll_dcn or 0.0)
                      / (peak.get("dcn_bytes_per_s") or peak["ici_bytes_per_s"]))
@@ -221,6 +226,8 @@ def analyze(doc: dict) -> dict:
             "peak_bytes": cost.get("peak_bytes"),
             "span": cost.get("span"),
         })
+        if dtype:
+            rows[-1]["flops_dtype"] = dtype
         if agg and agg.get("primed"):
             rows[-1]["primed_calls"] = agg["primed"]
         if isinstance(cards, (int, float)) and cards >= 1:

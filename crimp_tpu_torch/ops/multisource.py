@@ -23,7 +23,9 @@ The fit and the H-test reduce over the padded event axis with
 rows beside a row: they match the single-source survey path
 (``pipelines/survey.measure_source_toas``) to that rounding when the
 padding is exact (every source in a bucket padded to the width its solo
-run uses), not bit for bit.
+run uses), not bit for bit. On the card the fit's profile sweeps are K5's,
+with a fixed order of event sums a row, so there the fit's columns but the
+binned redChi2 are the single-source bits.
 
 The stacked fold shards its source rows over the shards of a source mesh
 when the job has several devices of the call's type

@@ -1,4 +1,8 @@
-"""The event-axis sum of the ToA fit and the per-ToA H-test, defined once.
+"""The event-axis sum of the ToA fit's plain twin and the per-ToA H-test,
+defined once. On the card the fit's event sums are K5's
+(``csrc/toafit.cu``), in a fixed order, so there a source's fit columns
+from a batched survey are its solo run's bits; what follows holds for the
+twin on the CPU and for the H-test.
 
 ``torch.sum`` over the last axis picks its CUDA launch configuration (and
 on the CPU its parallel split) from the whole tensor's shape, so a row's

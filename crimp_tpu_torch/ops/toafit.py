@@ -11,11 +11,22 @@ phase grid, and the profile likelihood over phShift is one dense sweep.
 
 The JAX package vmaps ``fit_segment`` over ToA segments; here the segment
 axis is a leading batch dimension S of every tensor ((S, N) phases,
-(S, P, N) sweeps). ``fori_loop`` becomes a Python loop. The error scan's
-batched ``while_loop`` becomes a loop that runs while any segment is still
-active, updating only the active segments, so each segment's result equals
-a lone run of that segment. Everything is float64, so TF32 cannot enter
-the Fourier sweep (``torch.matmul`` on f64 never uses it).
+(S, P) phase grids). The error scan's batched ``while_loop`` becomes a
+loop that runs while any segment is still active, updating only the active
+segments, so each segment's result equals a lone run of that segment.
+
+Every fixed-shape profile sweep (the shape term, the norm solve and the
+log-likelihood over (S, P) phases) goes through ``profile_sweep``: on a
+CUDA tensor one launch of K5 (``csrc/toafit.cu``), which keeps the
+per-event values on the chip and sums each row's events in a fixed order,
+so a row's results do not depend on the rows beside it or on its padding;
+on a CPU tensor its plain twin ``profile_sweep_reference``, the same
+arithmetic in torch ops over (S, P, N) temporaries (``fori_loop`` a Python
+loop, event sums ``torch.sum``). ``LAUNCHES["profile_sweep"]`` counts the
+calls that launched K5. A fit on the card sweeps its whole brute grid in
+one launch and computes K5's phase-independent operands once
+(``sweep_events``); ``brute_chunk`` bounds only the twin's temporaries.
+Everything is float64, so TF32 cannot enter the Fourier sweep.
 
 Error bars keep the reference's stepping semantics (step = 2*pi/phShiftRes;
 first step k* whose LL drop exceeds chi2_1(0.6827)/2; reported bound =
@@ -23,11 +34,11 @@ first step k* whose LL drop exceeds chi2_1(0.6827)/2; reported bound =
 
 The readvaryparam general path (``cfg.free_idx``) refits every flagged
 template parameter per phase by a fixed-iteration bounded Nelder-Mead,
-batched over (segment, phase).
+batched over (segment, phase), in torch ops on either device.
 
-``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two matrix products
-on bf16-rounded operands with f32 accumulation (a plain ``torch.matmul``,
-as JAX leaves it to XLA outside any kernel); off by default. The host
+``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two contractions
+on bf16-rounded operands with f32 accumulation (in K5 on the card; in the
+twin a plain ``torch.matmul``); off by default. The host
 wrappers fill the auto (-1) knobs through ``autotune.resolve_toafit``
 (``resolve_runtime_cfg``). ``fit_toas_batch_auto`` shards the segment
 axis over a segment mesh when the job has several devices of the call's
@@ -37,19 +48,22 @@ its caller passes.
 
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 from dataclasses import fields
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from crimp_tpu_torch import obs
+from crimp_tpu_torch import obs, resilience
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES, ProfileParams
 from crimp_tpu_torch.models.profiles import extended_loglik
 from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
 from crimp_tpu_torch.ops import reduce
+from crimp_tpu_torch.utils import profiling
 from crimp_tpu_torch.utils.device import resolve_device
 
 # 0.5 * chi2.ppf(0.6827, df=1): the 1-sigma likelihood-profile drop.
@@ -67,7 +81,7 @@ class ToAFitConfig(NamedTuple):
     kind: str = FOURIER
     ph_shift_res: int = 1000  # error-scan resolution: step = 2*pi/res
     n_brute: int = 128  # coarse global grid over the phShift range
-    brute_chunk: int = 64  # brute phases evaluated per sweep (memory bound)
+    brute_chunk: int = 64  # brute phases a twin sweep takes (memory bound); K5 sweeps them all at once
     newton_iters: int = 20  # inner norm solve (concave, quadratic conv.)
     refine_iters: int = 25  # golden-section refine of the grid optimum
     refine_mode: str = "golden"  # "golden" | "grid"
@@ -261,14 +275,12 @@ def _loglik_at(kind, tpl, s, a, b, mask, exposure, n_events):
     return torch.where(positive, ll, -math.inf)
 
 
-def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, warm_vec=None):
-    """(LL(phi), A*(phi), b*(phi)), each (S, P): profile over phShift with
-    the nuisance parameters re-optimized per shift. x, mask (S, N);
-    exposure (S,); phis (S, P). With ``cfg.free_idx`` the general
-    Nelder-Mead path runs; ``warm_vec`` (S, D) warm-starts it."""
-    if cfg.free_idx:
-        ll, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
-        return ll, vecs[..., 0], vecs[..., 1 + 3 * tpl.n_comp]
+def profile_sweep_reference(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig):
+    """Plain twin of K5: the fixed-shape profile sweep (LL, A*, b*), each
+    (S, P), in torch ops: the shape term over (S, P, N), the norm solve of
+    ``cfg`` (Newton on A, the joint (A, b) solve with ``cfg.vary_amps``, or
+    the template's norm with ``cfg.fix_norm``) and the log-likelihood. Its
+    (S, P, N) temporaries are what ``fit_segment``'s ``brute_chunk`` bounds."""
     n_events = torch.sum(mask, dim=-1).to(x.dtype)
     s = shape_at_shifts(kind, tpl, x, phis, bf16=cfg.mxu_bf16 == 1)
     if cfg.vary_amps:
@@ -283,9 +295,176 @@ def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, w
     return _loglik_at(kind, tpl, s, a, b, mask, exposure, n_events), a, b
 
 
-def profile_loglik(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, warm_vec=None):
+# ---------------------------------------------------------------------------
+# K5: the profile sweep as one hand-kernel launch
+# ---------------------------------------------------------------------------
+
+LAUNCHES = {"profile_sweep": 0}
+MAX_COMP = 64  # harmonics or components K5 takes (csrc/toafit.cu MAX_COMP)
+_KIND_CODE = {FOURIER: 0, VONMISES: 1, CAUCHY: 2}
+NORM_NEWTON, NORM_JOINT, NORM_FIXED = 0, 1, 2  # csrc/toafit.cu NormMode
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+# guards LAUNCHES (a survey's or serving engine's fit runs beside the
+# heartbeat and the engine's prep thread)
+_STATE_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _STATE_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            from crimp_tpu_torch.ops import z2_grid
+
+            lib = ctypes.CDLL(str(z2_grid.build()["toafit"]))
+            vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+            lib.toafit_profile.argtypes = [vp] * 10 + [ci, ci, ctypes.c_longlong, ci, ci, ci, ci,
+                                                       cd, cd, cd, ci, vp, vp, vp, vp]
+            lib.toafit_profile.restype = ci
+            lib.toafit_smem_events.argtypes = []
+            lib.toafit_smem_events.restype = ci
+            _LIB = lib
+    return _LIB
+
+
+def norm_mode(cfg: ToAFitConfig) -> int:
+    """The sweep's norm solve: the joint (A, b) Newton with ``vary_amps``,
+    else the fixed template norm with ``fix_norm``, else Newton on A."""
+    return NORM_JOINT if cfg.vary_amps else NORM_FIXED if cfg.fix_norm else NORM_NEWTON
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a sweep on ``x`` launches K5 (a CUDA tensor) or runs the twin."""
+    return x.device.type == "cuda"
+
+
+def sweep_events(kind, tpl, x, cfg: ToAFitConfig) -> dict:
+    """K5's per-row operands that do not depend on the phases, each
+    contiguous on x's device with a leading row axis (a shared template
+    expanded to every row), computed with the twin's own expressions:
+    ``row`` (S, 3), the norm lower bound, the norm and sum_j amp_j ampShift;
+    for Fourier the per-event coefficients ``ev_c``, ``ev_s`` (S, K, N);
+    else ``comp`` (S, 3, K): coef, kappa or cosh(wid), centre. A fit
+    computes them once for all its sweeps (``events=``); a subset of rows
+    takes ``events_rows``."""
+    S, K = x.shape[0], tpl.n_comp
+    rows = lambda t, *shape: t.expand(S, *shape).contiguous()  # noqa: E731
+    out = {"row": rows(torch.stack(torch.broadcast_tensors(
+        cfg.norm_lo_frac * tpl.norm, tpl.norm, _amp_total(tpl)), dim=-1), 3)}
+    if kind == FOURIER:
+        C, Sn = _fourier_event_coeffs(tpl, x)  # (S, N, K)
+        out.update(ev_c=C.transpose(-1, -2).contiguous(), ev_s=Sn.transpose(-1, -2).contiguous())
+    else:
+        amp = tpl.amp * tpl.amp_shift[..., None]
+        if kind == CAUCHY:
+            coef, shape2 = (amp / (2 * math.pi)) * torch.sinh(tpl.wid), torch.cosh(tpl.wid)
+        else:
+            shape2 = 1.0 / tpl.wid**2
+            coef = amp / (2 * math.pi * torch.special.i0(shape2))
+        out["comp"] = rows(torch.stack([coef, shape2, tpl.loc], dim=-2), 3, K)
+    return out
+
+
+def events_rows(events: dict | None, rows) -> dict | None:
+    """``sweep_events`` of a subset of rows."""
+    return None if events is None else {k: v[rows] for k, v in events.items()}
+
+
+def _launch_profile(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, events=None):
+    """Check the operands and launch K5 once: (LL, A, b), each (S, P).
+    ``events``: ``sweep_events(kind, tpl, x, cfg)``, computed here if None."""
+    if kind not in _KIND_CODE:
+        raise resilience.KernelError(f"profile_sweep: K5 takes no template family {kind!r}")
+    if tpl.n_comp < 1 or tpl.n_comp > MAX_COMP:
+        raise resilience.KernelError(f"profile_sweep: K5 takes 1 to {MAX_COMP} template components, "
+                                     f"got {tpl.n_comp}")
+    for t, name, dtype, ndim in ((x, "x", _F64, 2), (mask, "mask", torch.bool, 2),
+                                 (exposure, "exposure", _F64, 1), (phis, "phis", _F64, 2)):
+        if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() or t.device != x.device:
+            raise resilience.KernelError(
+                f"profile_sweep: K5 takes {name} as a contiguous {ndim}-D {dtype} tensor on x's device "
+                f"(got {t.dtype}, shape {tuple(t.shape)}, contiguous {t.is_contiguous()}, {t.device})")
+    S, N = x.shape
+    P = phis.shape[1]
+    if mask.shape != (S, N) or exposure.shape != (S,) or phis.shape[0] != S:
+        raise resilience.KernelError(f"profile_sweep: shapes {tuple(x.shape)}, {tuple(mask.shape)}, "
+                                     f"{tuple(exposure.shape)}, {tuple(phis.shape)} do not line up as "
+                                     "(S, N), (S, N), (S,), (S, P)")
+    out = [torch.empty((S, P), dtype=_F64, device=x.device) for _ in range(3)]
+    if S == 0 or P == 0:
+        return tuple(out)
+    if N == 0:
+        raise resilience.KernelError("profile_sweep: K5 takes at least one event slot a row")
+    ops = dict(sweep_events(kind, tpl, x, cfg) if events is None else events)
+    for name, t in ops.items():
+        if t.shape[0] != S or not t.is_contiguous() or t.device != x.device or t.dtype != _F64:
+            raise resilience.KernelError(f"profile_sweep: K5's operand {name} is not a contiguous f64 "
+                                         f"tensor of x's {S} rows on its device")
+    if kind == FOURIER:
+        j = torch.arange(1, tpl.n_comp + 1, dtype=_F64, device=x.device)
+        ops.update(cosj=torch.cos(j * phis[..., None]), sinj=torch.sin(j * phis[..., None]))
+    lib = _lib()
+    from crimp_tpu_torch.ops import z2_grid
+
+    ptr = lambda name: ops[name].data_ptr() if name in ops else None  # noqa: E731
+    with profiling.launch_window(x.device):
+        rc = lib.toafit_profile(
+            x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), phis.data_ptr(), ptr("cosj"), ptr("sinj"),
+            ptr("ev_c"), ptr("ev_s"), ptr("comp"), ptr("row"), S, P, N, tpl.n_comp, _KIND_CODE[kind],
+            norm_mode(cfg), cfg.newton_iters, cfg.norm_hi, cfg.amp_lo, cfg.amp_hi, int(cfg.mxu_bf16 == 1),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), z2_grid.stream_of(x))
+    z2_grid.check_launch(rc, "toafit_profile")
+    with _STATE_LOCK:
+        LAUNCHES["profile_sweep"] += 1
+    return tuple(out)
+
+
+def profile_sweep(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, site: str = "toa_profile_sweep",
+                  events=None):
+    """The fixed-shape profile sweep (LL, A*, b*), each (S, P), for x, mask
+    (S, N), exposure (S,), phis (S, P) and one shared template or one per
+    row: one K5 launch on a CUDA tensor (every operand contiguous, or
+    ``KernelError``; nothing falls back), the twin
+    ``profile_sweep_reference`` on a CPU tensor. ``site`` names the kernel
+    span and cost row of the launch (``obs roofline``); ``events`` passes
+    ``sweep_events`` computed once for several sweeps of the same rows."""
+    if not _on_card(x):
+        return profile_sweep_reference(kind, tpl, x, mask, exposure, phis, cfg)
+    with costmodel.kernel_span(site):
+        out = _launch_profile(kind, tpl, x, mask, exposure, phis, cfg, events)
+    costmodel.capture(site, None, kind, x, mask, exposure, phis, cfg, out=list(out),
+                      counts=lambda: costmodel.k5_counts(
+                          x.shape[0], phis.shape[1], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind,
+                          norm_mode(cfg), cfg.newton_iters, bf16=cfg.mxu_bf16 == 1))
+    return out
+
+
+def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, warm_vec=None,
+                        site: str = "toa_profile_sweep", events=None):
+    """(LL(phi), A*(phi), b*(phi)), each (S, P): profile over phShift with
+    the nuisance parameters re-optimized per shift. x, mask (S, N);
+    exposure (S,); phis (S, P). The fixed-shape sweep is
+    :func:`profile_sweep` (K5 on a card, one launch under span ``site``,
+    reusing ``events``). With ``cfg.free_idx`` the general Nelder-Mead path
+    runs in torch ops; ``warm_vec`` (S, D) warm-starts it."""
+    if cfg.free_idx:
+        ll, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+        return ll, vecs[..., 0], vecs[..., 1 + 3 * tpl.n_comp]
+    return profile_sweep(kind, tpl, x.contiguous(), mask.contiguous(), exposure.contiguous(),
+                         phis.contiguous(), cfg, site=site, events=events)
+
+
+def profile_loglik(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, warm_vec=None,
+                   site: str = "toa_profile_sweep", events=None):
     """(LL(phi), A*(phi)) profile with the norm re-optimized per shift."""
-    ll, a, _ = profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+    ll, a, _ = profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg, warm_vec, site=site, events=events)
     return ll, a
 
 
@@ -462,7 +641,8 @@ def _first_true(block: torch.Tensor) -> torch.Tensor:
     return torch.argmax(block.to(torch.uint8), dim=-1)
 
 
-def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfig, warm_vec=None):
+def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfig, warm_vec=None,
+                events=None):
     """Likelihood-profile 1-sigma bounds: dense first window + chunked loop.
 
     The reported bound is (k*+1)*step + step/2 where k* is the first step
@@ -471,7 +651,8 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
     steps in one sweep; phase 2, the fallback loop seeded at k0 = W, runs
     chunks of ``err_chunk`` steps only for the segments that have not
     crossed yet, so every segment's bounds equal a lone run's. ``warm_vec``
-    (S, D) seeds the readvaryparam Nelder-Mead at each segment's optimum.
+    (S, D) seeds the readvaryparam Nelder-Mead at each segment's optimum;
+    ``events`` are K5's ``sweep_events`` of all S rows.
 
     Returns (err_lo, err_hi, loop_iters), each (S,).
     """
@@ -483,10 +664,10 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
     W = cfg.err_dense_window if cfg.err_dense_window >= 0 else DENSE_WINDOW_DEFAULT
     W = min(W, max_k)
 
-    def scan_profile(rows, phis):
+    def scan_profile(rows, phis, site):
         warm = None if warm_vec is None else warm_vec[rows]
         ll, _ = profile_loglik(kind, template_rows(tpl, rows), x[rows], mask[rows], exposure[rows], phis,
-                               cfg, warm)
+                               cfg, warm, site=site, events=events_rows(events, rows))
         return ll
 
     all_rows = torch.arange(S, device=dev)
@@ -495,7 +676,8 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
         phis_dense = torch.cat(
             [phi_best[:, None] - ks_w.to(_F64) * step, phi_best[:, None] + ks_w.to(_F64) * step], dim=1
         )
-        dense_cross = (ll_max[:, None] - scan_profile(all_rows, phis_dense)) > CHI2_1SIG_HALF
+        ll_dense = scan_profile(all_rows, phis_dense, "toa_sweep_err_dense")
+        dense_cross = (ll_max[:, None] - ll_dense) > CHI2_1SIG_HALF
 
         def seed(block):
             any_cross = torch.any(block, dim=-1)
@@ -523,7 +705,7 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
                 break
             ks = k0[rows, None] + ks_c  # (R, chunk)
             phis = phi_best[rows, None] + sign * ks.to(_F64) * step
-            drop = ll_max[rows, None] - scan_profile(rows, phis)
+            drop = ll_max[rows, None] - scan_profile(rows, phis, "toa_sweep_err_loop")
             crossed = (drop > CHI2_1SIG_HALF) & (ks <= max_k)
             any_cross = torch.any(crossed, dim=-1)
             k_star = torch.gather(ks, 1, _first_true(crossed)[:, None])[:, 0]
@@ -542,22 +724,34 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     """Full ToA fit of S padded segments at once: x, mask (S, N), exposure
     (S,), tensors on one device (the JAX package's vmapped ``fit_segment``).
     ``tpl`` is one shared template, or one per row: leaves with a leading
-    (S,) axis (``fit_toas_batch_multi``; not with ``cfg.free_idx``)."""
+    (S,) axis (``fit_toas_batch_multi``; not with ``cfg.free_idx``).
+
+    On a CUDA tensor every profile sweep is one K5 launch: the brute grid
+    (all ``n_brute`` phases), each golden-section evaluation (or refine
+    round), the nuisance solve, the dense error window and each pass of the
+    error scan's fallback loop; ``brute_chunk`` matters only to the twin,
+    which a CPU tensor takes. The ``cfg.free_idx`` sweeps are torch ops."""
     if cfg.free_idx and tpl.norm.dim() > 0:
         raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
     S = x.shape[0]
     dev = x.device
 
-    # 1) coarse global brute grid, swept in chunks of brute_chunk phases
+    # 1) coarse global brute grid: on K5's route one sweep of all n_brute
+    #    phases (it keeps no (S, P, N) temporaries, and rows are independent);
+    #    the twin sweeps chunks of brute_chunk phases
     brute_phis = torch.as_tensor(
         np.linspace(-half_range, half_range, cfg.n_brute), dtype=_F64, device=dev
     )
-    chunk = max(1, min(cfg.brute_chunk, cfg.n_brute))
+    kernel_route = _on_card(x) and not cfg.free_idx
+    # K5's phase-independent operands, once for every sweep of the fit
+    events = sweep_events(kind, tpl, x, cfg) if kernel_route else None
+    chunk = cfg.n_brute if kernel_route else max(1, min(cfg.brute_chunk, cfg.n_brute))
     pad = (-cfg.n_brute) % chunk
     phis_pad = torch.cat([brute_phis, brute_phis[-1:].expand(pad)]) if pad else brute_phis
     ll_brute = torch.cat([
-        profile_loglik(kind, tpl, x, mask, exposure, p.expand(S, chunk), cfg)[0]
+        profile_loglik(kind, tpl, x, mask, exposure, p.expand(S, chunk), cfg, site="toa_sweep_brute",
+                       events=events)[0]
         for p in phis_pad.reshape(-1, chunk)
     ], dim=1)[:, : cfg.n_brute]
     i_best = torch.argmax(ll_brute, dim=1)
@@ -576,7 +770,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
         offs = torch.as_tensor(np.linspace(-1.0, 1.0, cfg.refine_grid), dtype=_F64, device=dev)
         for _ in range(cfg.refine_rounds):
             phis_r = phi_c[:, None] + half * offs
-            ll_r, _ = profile_loglik(kind, tpl, x, mask, exposure, phis_r, cfg)
+            ll_r, _ = profile_loglik(kind, tpl, x, mask, exposure, phis_r, cfg, site="toa_sweep_refine",
+                                     events=events)
             j = torch.argmax(ll_r, dim=1)
             phi_c = torch.gather(phis_r, 1, j[:, None])[:, 0]
             ll_max = torch.gather(ll_r, 1, j[:, None])[:, 0]
@@ -584,7 +779,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
         phi_best = phi_c
     elif cfg.refine_mode == "golden":
         def ll_of(phi):
-            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None], cfg)[0][:, 0]
+            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None], cfg, site="toa_sweep_refine",
+                                  events=events)[0][:, 0]
 
         phi_best, ll_max = golden_section(
             ll_of, phi0 - grid_step, phi0 + grid_step, iters=cfg.refine_iters
@@ -601,7 +797,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
         vec_best = vecs[:, 0]
         a_best, b_best = vec_best[:, 0], vec_best[:, 1 + 3 * tpl.n_comp]
     else:
-        _, a_arr, b_arr = profile_loglik_full(kind, tpl, x, mask, exposure, phi_best[:, None], cfg)
+        _, a_arr, b_arr = profile_loglik_full(kind, tpl, x, mask, exposure, phi_best[:, None], cfg,
+                                              site="toa_sweep_nuisance", events=events)
         a_best, b_best = a_arr[:, 0], b_arr[:, 0]
         vec_best = _flatten_tpl(tpl).expand(S, -1).clone()
         vec_best[:, 0] = a_best
@@ -610,7 +807,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     # 4) likelihood-profile error bounds (general mode: each step's
     #    Nelder-Mead starts from the best-fit vector)
     warm = vec_best if cfg.free_idx else None
-    err_lo, err_hi, scan_iters = _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm)
+    err_lo, err_hi, scan_iters = _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm,
+                                             events)
 
     # 5) binned-profile goodness of fit (general mode: the model at the
     #    refit shape, ampShift folded into the template)

@@ -16,8 +16,8 @@ Counterpart of ``crimp_tpu/ops/pallas_z2.py``. Two kernels live in
   returns the (optionally weighted) sums C_k, S_k.
 
 ``build()`` compiles every source of ``csrc/`` (this one, K3's
-``z2_general.cu`` and K4's ``deltafold.cu``), one ``nvcc`` per source, all
-started together, into ``build_dir()`` (``build/kernels/`` unless
+``z2_general.cu``, K4's ``deltafold.cu`` and K5's ``toafit.cu``), one
+``nvcc`` per source, all started together, into ``build_dir()`` (``build/kernels/`` unless
 CRIMP_TORCH_COMPILE_CACHE says otherwise).
 
 Each wrapper takes a CPU tensor to its plain twin (``probe_reference``,
@@ -57,7 +57,7 @@ MAX_ROWS = 65535  # n_fddot * n_fdot rides gridDim.y
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu",
-           "deltafold": CSRC / "deltafold.cu"}
+           "deltafold": CSRC / "deltafold.cu", "toafit": CSRC / "toafit.cu"}
 SOURCE = SOURCES["z2_grid"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -26,7 +26,10 @@ sources in every column but those of the fit and the H-test. Those sum
 events with ``torch.sum`` (``ops/reduce.py``), whose rounding can depend
 on the rows beside a source: phShift agrees within 1e-6 rad, phShift_LL/UL
 within one profile step, Hpower within 1e-5 relative (f32 sums) and
-redChi2 within 1e-6 relative. The fold under them is bitwise
+redChi2 within 1e-6 relative. On the card the fit's profile sweeps are
+K5's (``ops/toafit.profile_sweep``), whose event sums run in a fixed order
+a row, so there phShift, its bounds, norm, ampShift and logLmax are the
+solo run's bits; redChi2 and the H-test keep the tolerances. The fold under them is bitwise
 (``ops/multisource.stacked_fold``). Results are column dicts (``SURVEY_TOA_COLUMNS``), as the
 port's ``measure_toas`` returns.
 

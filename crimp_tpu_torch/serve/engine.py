@@ -34,7 +34,9 @@ survey's parity contract: every fit and H-test column (phShift 1e-6 rad,
 phShift_LL/UL one profile step, Hpower 1e-5 and redChi2 1e-6 relative; the
 other columns exact), because the port sums events with ``torch.sum``
 (``ops/reduce.event_sum``), whose rounding depends on the rows beside a
-row. The JAX package promises bits there too; the difference is deliberate
+row; on the card the fit's profile sweeps are K5's, with a fixed order a
+row, so there the fit's columns but redChi2 are the solo bits. The JAX
+package promises bits there too; the difference is deliberate
 (``pipelines/survey.py``).
 
 Failure domains are the survey's: a failed bucket splits and retries, a
@@ -171,15 +173,17 @@ class ServingEngine:
     def warmup(self) -> dict:
         """Build and load the hand kernels the serving path launches before
         the first request: ``z2_grid.build()`` (one nvcc per source), then
-        K4's library. No fallback: a failure raises ``KernelError``. The
-        CPU path launches no hand kernel, so a CPU engine builds nothing."""
+        K4's (the warm refold) and K5's (the fit's profile sweeps)
+        libraries. No fallback: a failure raises ``KernelError``. The CPU
+        path launches no hand kernel, so a CPU engine builds nothing."""
         if self.device.type != "cuda":
             return {"device": str(self.device), "built": {}, "seconds": 0.0}
-        from crimp_tpu_torch.ops import z2_grid
+        from crimp_tpu_torch.ops import toafit, z2_grid
 
         t0 = time.perf_counter()
         built = {name: str(path) for name, path in z2_grid.build().items()}
         deltafold._lib()
+        toafit._lib()
         return {"device": str(self.device), "built": built, "seconds": time.perf_counter() - t0}
 
     def close(self) -> None:

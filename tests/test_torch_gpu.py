@@ -22,7 +22,13 @@ the engine's delta mode must lie within 1e-8 cycles of an exact fold. K3
 launched at an explicit split length equal to its static plan must equal the
 default call bit for bit; a kernel span timed by CUDA events must lie within
 5% of the synchronized wall time of a ~90 ms K2 call; K2 at a tile offset
-must give the whole grid's tiles bit for bit. On two or more cards, the
+must give the whole grid's tiles bit for bit. K5, the ToA fit's profile
+sweep, must match its twin (LL rtol 1e-12, A and b rtol 1e-10, bf16 rtol
+1e-5) for every family and norm solve with the shape term in shared memory
+and recomputed, rerun bitwise, give a row alone its bits in a batch (and a
+lone segment's fit its row of an 84-segment batch in every column K5
+feeds, redChi2 within 1e-12 relative), and refuse with
+KernelError what it cannot take. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
@@ -691,6 +697,117 @@ class TestMeasuringLayerOnCard:
         part = search.z2_power_grid(t, f0, df, 1000 - 768 + 500, 2, device=cuda_device, per_split=50176,
                                     tile0=3)[1000 - 768:]
         assert torch.equal(part, whole[1000:1500])
+
+
+def _sweep_operands(kind, n_max, dev, seed=40, n_rows=3, n_phis=8, n_comp=6):
+    """Seeded K5 operands on ``dev``: ragged rows (n_max, 0.86 n_max and
+    0.75 n_max events) of uniform phases, a template of the family and a
+    jittered phase grid a row."""
+    rng = np.random.RandomState(seed)
+    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64), device=dev)  # noqa: E731
+    if kind == "fourier":
+        leaves = dict(norm=12.0, amp=rng.uniform(0.3, 2.0, n_comp), loc=rng.uniform(-np.pi, np.pi, n_comp),
+                      wid=np.zeros(n_comp))
+        cycle, half = 1.0, np.pi
+    else:
+        leaves = dict(norm=9.0, amp=rng.uniform(5.0, 15.0, n_comp), loc=rng.uniform(0.5, 5.8, n_comp),
+                      wid=rng.uniform(0.3, 0.9, n_comp))
+        cycle, half = 2 * np.pi, 1.5 * np.pi
+    tpl = profiles.ProfileParams(ph_shift=t(0.0), amp_shift=t(1.0), **{k: t(v) for k, v in leaves.items()})
+    counts = [n_max, int(0.86 * n_max), int(0.75 * n_max)][:n_rows]
+    x = np.zeros((n_rows, n_max))
+    mask = np.zeros((n_rows, n_max), dtype=bool)
+    for r, n in enumerate(counts):
+        x[r, :n] = rng.uniform(0.0, cycle, n)
+        mask[r, :n] = True
+    phis = np.linspace(-half, half, n_phis)[None, :] + rng.uniform(-0.05, 0.05, (n_rows, n_phis))
+    return (tpl, t(x), torch.as_tensor(mask, device=dev), t([n / 14.0 for n in counts]), t(phis))
+
+
+SWEEP_MODES = {"newton": {}, "joint": {"vary_amps": True}, "fixed": {"fix_norm": True}}
+
+
+@pytest.mark.gpu
+class TestProfileKernel:
+    """K5 against its twin on the same card tensors: LL within rtol 1e-12, A
+    and b within rtol 1e-10 (the event sums' order); with bf16 within rtol
+    1e-5 (the f32 sums of bf16 products); 2 000 events a row keep the shape
+    term in shared memory, 40 000 recompute it every pass."""
+
+    @pytest.mark.parametrize("n_max", [2000, 40000])
+    @pytest.mark.parametrize("bf16", [0, 1])
+    @pytest.mark.parametrize("mode", sorted(SWEEP_MODES))
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_k5_matches_twin(self, cuda_device, kind, mode, bf16, n_max):
+        assert 2000 < toafit._lib().toafit_smem_events() < 40000  # one case a branch
+        tpl, x, mask, exposure, phis = _sweep_operands(kind, n_max, cuda_device)
+        cfg = toafit.ToAFitConfig(kind=kind, mxu_bf16=bf16, **SWEEP_MODES[mode])
+        toafit.reset_launches()
+        got = toafit.profile_sweep(kind, tpl, x, mask, exposure, phis, cfg)
+        assert toafit.LAUNCHES["profile_sweep"] == 1
+        want = toafit.profile_sweep_reference(kind, tpl, x, mask, exposure, phis, cfg)
+        rtol = 1e-5 if bf16 and kind == "fourier" else None
+        ll, ll_w = got[0].cpu().numpy(), want[0].cpu().numpy()
+        np.testing.assert_array_equal(np.isfinite(ll), np.isfinite(ll_w))
+        assert np.isfinite(ll_w).any()
+        fin = np.isfinite(ll_w)
+        np.testing.assert_allclose(ll[fin], ll_w[fin], rtol=rtol or 1e-12, atol=0)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol or 1e-10, atol=0)
+
+    def test_k5_reruns_bitwise_and_rows_alone(self, cuda_device):
+        tpl, x, mask, exposure, phis = _sweep_operands("vonmises", 3000, cuda_device)
+        cfg = toafit.ToAFitConfig(kind="vonmises", vary_amps=True)
+        first = toafit.profile_sweep("vonmises", tpl, x, mask, exposure, phis, cfg)
+        again = toafit.profile_sweep("vonmises", tpl, x, mask, exposure, phis, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        n = int(mask[2].sum())  # the last row alone, padded only to its own length
+        alone = toafit.profile_sweep("vonmises", tpl, x[2:, :n].contiguous(), mask[2:, :n].contiguous(),
+                                     exposure[2:], phis[2:], cfg)
+        assert all(torch.equal(a[0], b[2]) for a, b in zip(alone, first))
+
+    def test_lone_segment_fit_is_its_row_of_an_84_segment_batch(self, cuda_device):
+        rng = np.random.RandomState(41)
+        tpl = profiles.ProfileParams(
+            norm=torch.tensor(10.0, dtype=torch.float64), amp=torch.tensor([3.0, 1.0], dtype=torch.float64),
+            loc=torch.tensor([0.2, -0.4], dtype=torch.float64), wid=torch.zeros(2, dtype=torch.float64),
+            ph_shift=torch.tensor(0.0, dtype=torch.float64), amp_shift=torch.tensor(1.0, dtype=torch.float64))
+        segs = []
+        for _ in range(84):
+            cand = rng.uniform(0, 1, 6000)
+            dens = 10.0 + 3.0 * np.cos(2 * np.pi * cand + 0.2) + np.cos(4 * np.pi * cand - 0.4)
+            segs.append(cand[rng.uniform(0, 14.5, cand.size) < dens][: rng.randint(800, 3000)])
+        phases, masks = toafit.pad_segments(segs)
+        exposures = np.array([len(s) / 10.0 for s in segs])
+        cfg = toafit.ToAFitConfig(ph_shift_res=1000)
+        toafit.reset_launches()
+        batch = toafit.fit_toas_batch("fourier", tpl, phases, masks, exposures, cfg, device=cuda_device)
+        assert toafit.LAUNCHES["profile_sweep"] >= 1 + 2 + 2 * cfg.refine_iters + 1 + 1
+        for r in (0, 41, 83):
+            one = toafit.fit_toas_batch("fourier", tpl, segs[r][None], np.ones((1, len(segs[r])), bool),
+                                        exposures[r:r + 1], cfg, device=cuda_device)
+            for key in ("phShift", "phShift_LL", "phShift_UL", "norm", "ampShift", "logLmax", "errScanLoopIters"):
+                assert torch.equal(one[key][0], batch[key][r]), (r, key)
+            # the binned chi2 is torch code (a batched matrix product, a sum
+            # over the bins), not K5: it rounds with the rows beside it
+            np.testing.assert_allclose(one["redChi2"][0].item(), batch["redChi2"][r].item(), rtol=1e-12)
+
+    def test_k5_refuses_what_it_cannot_take(self, cuda_device):
+        from crimp_tpu_torch.resilience import KernelError
+
+        tpl, x, mask, exposure, phis = _sweep_operands("fourier", 500, cuda_device)
+        cfg = toafit.ToAFitConfig()
+        toafit.reset_launches()
+        with pytest.raises(KernelError, match="contiguous"):
+            toafit.profile_sweep("fourier", tpl, x, mask, exposure, phis.T.contiguous().T, cfg)
+        with pytest.raises(KernelError, match="float64"):
+            toafit.profile_sweep("fourier", tpl, x.float(), mask, exposure, phis, cfg)
+        wide = tpl.replace(amp=torch.ones(toafit.MAX_COMP + 1, dtype=torch.float64, device=cuda_device),
+                           loc=torch.zeros(toafit.MAX_COMP + 1, dtype=torch.float64, device=cuda_device),
+                           wid=torch.zeros(toafit.MAX_COMP + 1, dtype=torch.float64, device=cuda_device))
+        with pytest.raises(KernelError, match="components"):
+            toafit.profile_sweep("fourier", wide, x, mask, exposure, phis, cfg)
+        assert toafit.LAUNCHES["profile_sweep"] == 0
 
 
 @pytest.mark.gpu
