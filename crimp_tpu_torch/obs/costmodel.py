@@ -10,9 +10,10 @@ into achieved FLOP/s, bytes/s and a share of the card's roofline. XLA's
   K2 ``z2_grid.flops_per_pair`` per (trial, event) pair (:func:`k2_counts`),
   K3 the f32 operations of ``z2_general.ops_per_pair`` (:func:`k3_counts`),
   K4 B*E*(P + 2)*8 bytes (:func:`k4_counts`), K5 the f64 operations of a
-  profile sweep (:func:`k5_counts`, held to the f64 peak through the row's
-  ``flops_dtype``); bytes count each input read once and each output
-  written once;
+  profile sweep (:func:`k5_counts`; its golden-section refine, the
+  one-phase sweeps it evaluates, :func:`k5_golden_counts`; held to the f64
+  peak through the row's ``flops_dtype``); bytes count each input read
+  once and each output written once;
 - **the tensors themselves** for ``argument_bytes`` and ``output_bytes``;
 - **``torch.utils.flop_counter.FlopCounterMode``** for torch code, by
   running the function once on ``meta`` tensors (no data, no card work);
@@ -320,6 +321,17 @@ def k5_counts(n_rows: int, n_phis: int, n_events: float, n_comp: int, kind: str,
     ops = S * P * float(n_events) * k5_ops_per_event(n_comp, kind, mode, newton_iters, bf16)
     nbytes = S * float(n_events) * 9 + S * 8 + S * P * 8 + 8 * (3 * n_comp + 2) + 3 * S * P * 8
     return {"flops": ops, "bytes_accessed": nbytes, "flops_dtype": "f64"}
+
+
+def k5_golden_counts(n_rows: int, n_events: float, n_comp: int, kind: str, mode: int, newton_iters: int,
+                     refine_iters: int, bf16: bool = False) -> dict:
+    """K5's golden-section refine over S = ``n_rows`` rows, one launch: the
+    work of the 2 + 2 ``refine_iters`` one-phase sweeps it evaluates, each
+    counted as ``k5_counts(S, 1, ...)`` (operations and bytes), as the chain
+    of one-phase launches it replaces was charged."""
+    one = k5_counts(n_rows, 1, n_events, n_comp, kind, mode, newton_iters, bf16)
+    evals = 2 + 2 * int(refine_iters)
+    return {"flops": evals * one["flops"], "bytes_accessed": evals * one["bytes_accessed"], "flops_dtype": "f64"}
 
 
 # -- disk tier (the autotune cache file, "cost|" keys) -----------------------------

@@ -22,9 +22,15 @@ per-event values on the chip and sums each row's events in a fixed order,
 so a row's results do not depend on the rows beside it or on its padding;
 on a CPU tensor its plain twin ``profile_sweep_reference``, the same
 arithmetic in torch ops over (S, P, N) temporaries (``fori_loop`` a Python
-loop, event sums ``torch.sum``). ``LAUNCHES["profile_sweep"]`` counts the
-calls that launched K5. A fit on the card sweeps its whole brute grid in
-one launch and computes K5's phase-independent operands once
+loop, event sums ``torch.sum``). The golden-section refine with the
+nuisance solve at its optimum goes through ``golden_refine``: on a CUDA
+tensor one launch of K5's ``toafit_golden`` (a cluster of two blocks a
+row, exchanging each round's evaluations), bitwise the chain of one-phase
+sweeps it replaces; on a CPU tensor ``golden_refine_reference``
+(``golden_section`` over the twin). ``LAUNCHES["profile_sweep"]`` and
+``LAUNCHES["golden_refine"]`` count the calls that launched K5's two entry
+points. A fit on the card sweeps its whole brute grid in one launch,
+refines in one more and computes K5's phase-independent operands once
 (``sweep_events``); ``brute_chunk`` bounds only the twin's temporaries.
 Everything is float64, so TF32 cannot enter the Fourier sweep.
 
@@ -299,7 +305,7 @@ def profile_sweep_reference(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfi
 # K5: the profile sweep as one hand-kernel launch
 # ---------------------------------------------------------------------------
 
-LAUNCHES = {"profile_sweep": 0}
+LAUNCHES = {"profile_sweep": 0, "golden_refine": 0}
 MAX_COMP = 64  # harmonics or components K5 takes (csrc/toafit.cu MAX_COMP)
 _KIND_CODE = {FOURIER: 0, VONMISES: 1, CAUCHY: 2}
 NORM_NEWTON, NORM_JOINT, NORM_FIXED = 0, 1, 2  # csrc/toafit.cu NormMode
@@ -324,10 +330,11 @@ def _lib():
             from crimp_tpu_torch.ops import z2_grid
 
             lib = ctypes.CDLL(str(z2_grid.build()["toafit"]))
-            vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            lib.toafit_profile.argtypes = [vp] * 10 + [ci, ci, ctypes.c_longlong, ci, ci, ci, ci,
-                                                       cd, cd, cd, ci, vp, vp, vp, vp]
+            vp, ci, cd, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+            lib.toafit_profile.argtypes = [vp] * 8 + [ci, ci, cl, ci, ci, ci, ci, cd, cd, cd, ci, vp, vp, vp, vp]
             lib.toafit_profile.restype = ci
+            lib.toafit_golden.argtypes = [vp] * 9 + [ci, cl, ci, ci, ci, ci, ci, cd, cd, cd, ci, vp, vp, vp, vp, vp]
+            lib.toafit_golden.restype = ci
             lib.toafit_smem_events.argtypes = []
             lib.toafit_smem_events.restype = ci
             _LIB = lib
@@ -377,52 +384,67 @@ def events_rows(events: dict | None, rows) -> dict | None:
     return None if events is None else {k: v[rows] for k, v in events.items()}
 
 
-def _launch_profile(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, events=None):
-    """Check the operands and launch K5 once: (LL, A, b), each (S, P).
-    ``events``: ``sweep_events(kind, tpl, x, cfg)``, computed here if None."""
+def _row_operands(entry, kind, tpl, x, mask, exposure, grids, cfg: ToAFitConfig, events=None) -> dict:
+    """Check what K5's entry point ``entry`` takes and return its per-row
+    operands (``events``, or ``sweep_events`` computed here): every operand
+    a contiguous f64 tensor (mask bool) on x's device, x and mask (S, N),
+    exposure (S,), and ``grids`` {name: (tensor, ndim)} with S leading rows.
+    Raises ``KernelError`` on anything else; an empty batch returns None."""
     if kind not in _KIND_CODE:
-        raise resilience.KernelError(f"profile_sweep: K5 takes no template family {kind!r}")
+        raise resilience.KernelError(f"{entry}: K5 takes no template family {kind!r}")
     if tpl.n_comp < 1 or tpl.n_comp > MAX_COMP:
-        raise resilience.KernelError(f"profile_sweep: K5 takes 1 to {MAX_COMP} template components, "
+        raise resilience.KernelError(f"{entry}: K5 takes 1 to {MAX_COMP} template components, "
                                      f"got {tpl.n_comp}")
-    for t, name, dtype, ndim in ((x, "x", _F64, 2), (mask, "mask", torch.bool, 2),
-                                 (exposure, "exposure", _F64, 1), (phis, "phis", _F64, 2)):
+    for name, (t, dtype, ndim) in {"x": (x, _F64, 2), "mask": (mask, torch.bool, 2), "exposure": (exposure, _F64, 1),
+                                   **{k: (t, _F64, nd) for k, (t, nd) in grids.items()}}.items():
         if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() or t.device != x.device:
             raise resilience.KernelError(
-                f"profile_sweep: K5 takes {name} as a contiguous {ndim}-D {dtype} tensor on x's device "
+                f"{entry}: K5 takes {name} as a contiguous {ndim}-D {dtype} tensor on x's device "
                 f"(got {t.dtype}, shape {tuple(t.shape)}, contiguous {t.is_contiguous()}, {t.device})")
     S, N = x.shape
-    P = phis.shape[1]
-    if mask.shape != (S, N) or exposure.shape != (S,) or phis.shape[0] != S:
-        raise resilience.KernelError(f"profile_sweep: shapes {tuple(x.shape)}, {tuple(mask.shape)}, "
-                                     f"{tuple(exposure.shape)}, {tuple(phis.shape)} do not line up as "
-                                     "(S, N), (S, N), (S,), (S, P)")
-    out = [torch.empty((S, P), dtype=_F64, device=x.device) for _ in range(3)]
-    if S == 0 or P == 0:
-        return tuple(out)
+    if mask.shape != (S, N) or exposure.shape != (S,) or any(t.shape[0] != S for t, _ in grids.values()):
+        raise resilience.KernelError(
+            f"{entry}: shapes x {tuple(x.shape)}, mask {tuple(mask.shape)}, exposure {tuple(exposure.shape)}, "
+            + ", ".join(f"{k} {tuple(t.shape)}" for k, (t, _) in grids.items())
+            + " do not line up as (S, N), (S, N), (S,) and S leading rows")
+    if S == 0 or any(t.numel() == 0 for t, _ in grids.values()):
+        return None
     if N == 0:
-        raise resilience.KernelError("profile_sweep: K5 takes at least one event slot a row")
+        raise resilience.KernelError(f"{entry}: K5 takes at least one event slot a row")
     ops = dict(sweep_events(kind, tpl, x, cfg) if events is None else events)
     for name, t in ops.items():
         if t.shape[0] != S or not t.is_contiguous() or t.device != x.device or t.dtype != _F64:
-            raise resilience.KernelError(f"profile_sweep: K5's operand {name} is not a contiguous f64 "
+            raise resilience.KernelError(f"{entry}: K5's operand {name} is not a contiguous f64 "
                                          f"tensor of x's {S} rows on its device")
-    if kind == FOURIER:
-        j = torch.arange(1, tpl.n_comp + 1, dtype=_F64, device=x.device)
-        ops.update(cosj=torch.cos(j * phis[..., None]), sinj=torch.sin(j * phis[..., None]))
-    lib = _lib()
+    return ops
+
+
+def _count_launch(key: str) -> None:
+    with _STATE_LOCK:
+        LAUNCHES[key] += 1
+
+
+def _launch_profile(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, events=None):
+    """Check the operands and launch K5's sweep once: (LL, A, b), each
+    (S, P). ``events``: ``sweep_events(kind, tpl, x, cfg)``, computed here
+    if None."""
+    out = [torch.empty(tuple(phis.shape), dtype=_F64, device=x.device) for _ in range(3)]
+    ops = _row_operands("profile_sweep", kind, tpl, x, mask, exposure, {"phis": (phis, 2)}, cfg, events)
+    if ops is None:
+        return tuple(out)
     from crimp_tpu_torch.ops import z2_grid
 
+    lib = _lib()
     ptr = lambda name: ops[name].data_ptr() if name in ops else None  # noqa: E731
+    S, N = x.shape
     with profiling.launch_window(x.device):
         rc = lib.toafit_profile(
-            x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), phis.data_ptr(), ptr("cosj"), ptr("sinj"),
-            ptr("ev_c"), ptr("ev_s"), ptr("comp"), ptr("row"), S, P, N, tpl.n_comp, _KIND_CODE[kind],
-            norm_mode(cfg), cfg.newton_iters, cfg.norm_hi, cfg.amp_lo, cfg.amp_hi, int(cfg.mxu_bf16 == 1),
+            x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), phis.data_ptr(), ptr("ev_c"), ptr("ev_s"),
+            ptr("comp"), ptr("row"), S, phis.shape[1], N, tpl.n_comp, _KIND_CODE[kind], norm_mode(cfg),
+            cfg.newton_iters, cfg.norm_hi, cfg.amp_lo, cfg.amp_hi, int(cfg.mxu_bf16 == 1),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), z2_grid.stream_of(x))
     z2_grid.check_launch(rc, "toafit_profile")
-    with _STATE_LOCK:
-        LAUNCHES["profile_sweep"] += 1
+    _count_launch("profile_sweep")
     return tuple(out)
 
 
@@ -443,6 +465,72 @@ def profile_sweep(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, site: s
                       counts=lambda: costmodel.k5_counts(
                           x.shape[0], phis.shape[1], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind,
                           norm_mode(cfg), cfg.newton_iters, bf16=cfg.mxu_bf16 == 1))
+    return out
+
+
+def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg: ToAFitConfig, events=None):
+    """Check the operands and launch K5's golden-section refine once:
+    (phi_best, ll_max, a_best, b_best), each (S,)."""
+    if cfg.refine_iters < 0:
+        raise resilience.KernelError(f"golden_refine: K5 takes refine_iters >= 0, got {cfg.refine_iters}")
+    out = [torch.empty(tuple(lo.shape), dtype=_F64, device=x.device) for _ in range(4)]
+    ops = _row_operands("golden_refine", kind, tpl, x, mask, exposure, {"lo": (lo, 1), "hi": (hi, 1)}, cfg,
+                        events)
+    if ops is None:
+        return tuple(out)
+    from crimp_tpu_torch.ops import z2_grid
+
+    lib = _lib()
+    ptr = lambda name: ops[name].data_ptr() if name in ops else None  # noqa: E731
+    S, N = x.shape
+    with profiling.launch_window(x.device):
+        rc = lib.toafit_golden(
+            x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), lo.data_ptr(), hi.data_ptr(), ptr("ev_c"),
+            ptr("ev_s"), ptr("comp"), ptr("row"), S, N, tpl.n_comp, _KIND_CODE[kind], norm_mode(cfg),
+            cfg.newton_iters, cfg.refine_iters, cfg.norm_hi, cfg.amp_lo, cfg.amp_hi, int(cfg.mxu_bf16 == 1),
+            *(t.data_ptr() for t in out), z2_grid.stream_of(x))
+    z2_grid.check_launch(rc, "toafit_golden")
+    _count_launch("golden_refine")
+    return tuple(out)
+
+
+def golden_refine_reference(kind, tpl, x, mask, exposure, lo, hi, cfg: ToAFitConfig, sweep=None):
+    """Plain version of K5's golden-section refine: ``optimize.golden_section``
+    over one-phase sweeps of every row on [lo, hi] (``cfg.refine_iters``
+    iterations), then a one-phase sweep at the optimum for its (A, b).
+    Returns (phi_best, ll_max, a_best, b_best), each (S,). ``sweep`` is the
+    fixed-shape sweep it chains, the twin ``profile_sweep_reference`` by
+    default (``profile_sweep`` makes it the chain of one-phase K5 launches
+    that a card fit ran before the refine was one launch)."""
+    sweep = profile_sweep_reference if sweep is None else sweep
+
+    def at(phi):
+        return sweep(kind, tpl, x, mask, exposure, phi[:, None].contiguous(), cfg)
+
+    phi_best, ll_max = golden_section(lambda phi: at(phi)[0][:, 0], lo, hi, iters=cfg.refine_iters)
+    _, a, b = at(phi_best)
+    return phi_best, ll_max, a[:, 0], b[:, 0]
+
+
+def golden_refine(kind, tpl, x, mask, exposure, lo, hi, cfg: ToAFitConfig, events=None):
+    """The golden-section refine of every row's profile likelihood on
+    [lo, hi] (each (S,)) and the nuisance parameters at the optimum:
+    (phi_best, ll_max, a_best, b_best), each (S,). On a CUDA tensor one K5
+    launch (``csrc/toafit.cu`` ``toafit_golden``: a cluster of two blocks a
+    row, ``cfg.refine_iters`` rounds), bitwise the chain of one-phase K5
+    sweeps under ``golden_section`` and the sweep at the optimum; operands
+    K5 cannot take raise ``KernelError`` (nothing falls back). On a CPU
+    tensor ``golden_refine_reference``. ``events``: ``sweep_events`` of the
+    rows, computed once a fit."""
+    if not _on_card(x):
+        return golden_refine_reference(kind, tpl, x, mask, exposure, lo, hi, cfg)
+    site = "toa_sweep_refine"
+    with costmodel.kernel_span(site):
+        out = _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, events)
+    costmodel.capture(site, None, kind, x, mask, exposure, lo, hi, cfg, out=list(out),
+                      counts=lambda: costmodel.k5_golden_counts(
+                          x.shape[0], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind, norm_mode(cfg),
+                          cfg.newton_iters, cfg.refine_iters, bf16=cfg.mxu_bf16 == 1))
     return out
 
 
@@ -726,11 +814,13 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     ``tpl`` is one shared template, or one per row: leaves with a leading
     (S,) axis (``fit_toas_batch_multi``; not with ``cfg.free_idx``).
 
-    On a CUDA tensor every profile sweep is one K5 launch: the brute grid
-    (all ``n_brute`` phases), each golden-section evaluation (or refine
-    round), the nuisance solve, the dense error window and each pass of the
-    error scan's fallback loop; ``brute_chunk`` matters only to the twin,
-    which a CPU tensor takes. The ``cfg.free_idx`` sweeps are torch ops."""
+    On a CUDA tensor each step is one K5 launch: the brute grid (all
+    ``n_brute`` phases), the whole golden-section refine with the nuisance
+    solve at its optimum (``golden_refine``; with ``refine_mode="grid"``
+    each refine round and the nuisance solve), the dense error window and
+    each pass of the error scan's fallback loop; ``brute_chunk`` matters
+    only to the twin, which a CPU tensor takes. The ``cfg.free_idx`` sweeps
+    are torch ops."""
     if cfg.free_idx and tpl.norm.dim() > 0:
         raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
@@ -777,10 +867,14 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
             ll_max = torch.gather(ll_r, 1, j[:, None])[:, 0]
             half = 2.0 * half / (cfg.refine_grid - 1)
         phi_best = phi_c
+    elif cfg.refine_mode == "golden" and not cfg.free_idx:
+        # the refine and the nuisance parameters at its optimum: one K5
+        # launch on the card, golden_section over the twin on the CPU
+        phi_best, ll_max, a_best, b_best = golden_refine(kind, tpl, x, mask, exposure, phi0 - grid_step,
+                                                         phi0 + grid_step, cfg, events)
     elif cfg.refine_mode == "golden":
         def ll_of(phi):
-            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None], cfg, site="toa_sweep_refine",
-                                  events=events)[0][:, 0]
+            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None], cfg)[0][:, 0]
 
         phi_best, ll_max = golden_section(
             ll_of, phi0 - grid_step, phi0 + grid_step, iters=cfg.refine_iters
@@ -790,16 +884,18 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
             f"unknown refine_mode {cfg.refine_mode!r} (expected 'golden' or 'grid')"
         )
 
-    # 3) nuisance parameters at the optimum; general mode also yields the
-    #    full refit shape vector for the chi2 model
+    # 3) nuisance parameters at the optimum (the golden refine's own on the
+    #    fixed-shape path); general mode also yields the full refit shape
+    #    vector for the chi2 model
     if cfg.free_idx:
         _, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phi_best[:, None], cfg)
         vec_best = vecs[:, 0]
         a_best, b_best = vec_best[:, 0], vec_best[:, 1 + 3 * tpl.n_comp]
     else:
-        _, a_arr, b_arr = profile_loglik_full(kind, tpl, x, mask, exposure, phi_best[:, None], cfg,
-                                              site="toa_sweep_nuisance", events=events)
-        a_best, b_best = a_arr[:, 0], b_arr[:, 0]
+        if cfg.refine_mode == "grid":
+            _, a_arr, b_arr = profile_loglik_full(kind, tpl, x, mask, exposure, phi_best[:, None], cfg,
+                                                  site="toa_sweep_nuisance", events=events)
+            a_best, b_best = a_arr[:, 0], b_arr[:, 0]
         vec_best = _flatten_tpl(tpl).expand(S, -1).clone()
         vec_best[:, 0] = a_best
         vec_best[:, 1 + 3 * tpl.n_comp] = b_best

@@ -28,12 +28,18 @@ sweep, must match its twin (LL rtol 1e-12, A and b rtol 1e-10, bf16 rtol
 and recomputed, rerun bitwise, give a row alone its bits in a batch (and a
 lone segment's fit its row of an 84-segment batch in every column K5
 feeds, redChi2 within 1e-12 relative), and refuse with
-KernelError what it cannot take. On two or more cards, the
+KernelError what it cannot take. K5's golden-section refine, one cluster
+launch, must be bitwise the chain of one-phase K5 sweeps under
+golden_section plus the sweep at the optimum for every family, norm solve
+and bf16 mode, with the shape term in shared memory and recomputed, a
+row alone its batch row, reruns bitwise; a refused launch must raise
+KernelError out of the fit, with no chain or twin run in its place. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
 """
 
+import functools
 import json
 import pathlib
 
@@ -782,7 +788,8 @@ class TestProfileKernel:
         cfg = toafit.ToAFitConfig(ph_shift_res=1000)
         toafit.reset_launches()
         batch = toafit.fit_toas_batch("fourier", tpl, phases, masks, exposures, cfg, device=cuda_device)
-        assert toafit.LAUNCHES["profile_sweep"] >= 1 + 2 + 2 * cfg.refine_iters + 1 + 1
+        # the brute grid and the dense window are sweeps, the refine one launch
+        assert toafit.LAUNCHES["golden_refine"] == 1 and toafit.LAUNCHES["profile_sweep"] >= 2
         for r in (0, 41, 83):
             one = toafit.fit_toas_batch("fourier", tpl, segs[r][None], np.ones((1, len(segs[r])), bool),
                                         exposures[r:r + 1], cfg, device=cuda_device)
@@ -808,6 +815,73 @@ class TestProfileKernel:
         with pytest.raises(KernelError, match="components"):
             toafit.profile_sweep("fourier", wide, x, mask, exposure, phis, cfg)
         assert toafit.LAUNCHES["profile_sweep"] == 0
+
+
+GOLDEN_CASES = [(kind, mode, 0) for kind in ("fourier", "vonmises", "cauchy") for mode in sorted(SWEEP_MODES)] \
+    + [("fourier", mode, 1) for mode in sorted(SWEEP_MODES)]
+
+
+@pytest.mark.gpu
+class TestGoldenRefine:
+    """K5's golden-section refine in one launch against the chain it
+    replaced: 2 + 2 refine_iters one-phase K5 sweeps under golden_section's
+    torch bookkeeping, then a one-phase sweep at the optimum, bitwise."""
+
+    @pytest.mark.parametrize("n_max", [2000, 40000])
+    @pytest.mark.parametrize("kind,mode,bf16", GOLDEN_CASES)
+    def test_golden_launch_is_bitwise_the_chain(self, cuda_device, kind, mode, bf16, n_max):
+        tpl, x, mask, exposure, phis = _sweep_operands(kind, n_max, cuda_device, seed=42)
+        cfg = toafit.ToAFitConfig(kind=kind, mxu_bf16=bf16, **SWEEP_MODES[mode])
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        events = toafit.sweep_events(kind, tpl, x, cfg)
+        toafit.reset_launches()
+        got = toafit.golden_refine(kind, tpl, x, mask, exposure, lo, hi, cfg, events)
+        assert toafit.LAUNCHES == {"profile_sweep": 0, "golden_refine": 1}
+        chain = toafit.golden_refine_reference(kind, tpl, x, mask, exposure, lo, hi, cfg,
+                                               sweep=functools.partial(toafit.profile_sweep, events=events))
+        assert toafit.LAUNCHES == {"profile_sweep": 2 + 2 * cfg.refine_iters + 1, "golden_refine": 1}
+        names = ("phi_best", "ll_max", "a_best", "b_best")
+        for name, g, w in zip(names, got, chain):
+            assert torch.equal(g, w), name
+        assert bool(torch.isfinite(got[1]).any())
+        again = toafit.golden_refine(kind, tpl, x, mask, exposure, lo, hi, cfg)  # operands made anew
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        # a row alone (S = 1, padded to its own length) is its batch row
+        n = int(mask[1].sum())
+        alone = toafit.golden_refine(kind, tpl, x[1:2, :n].contiguous(), mask[1:2, :n].contiguous(), exposure[1:2],
+                                     lo[1:2], hi[1:2], cfg)
+        for name, a, b in zip(names, alone, got):
+            assert torch.equal(a[0], b[1]), name
+
+    def test_refused_launch_raises_out_of_the_fit(self, cuda_device, monkeypatch):
+        from crimp_tpu_torch.resilience import KernelError
+
+        tpl, x, mask, exposure, phis = _sweep_operands("fourier", 500, cuda_device)
+        cfg = toafit.ToAFitConfig()
+        lib = toafit._lib()
+        rc = lib.toafit_golden(x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), phis.data_ptr(), phis.data_ptr(),
+                               None, None, None, None, 0, x.shape[1], 6, 0, 0, 20, 25, 500.0, 0.01, 100.0, 0,
+                               None, None, None, None, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0  # no rows: refused before any launch
+        with pytest.raises(KernelError, match="contiguous"):
+            toafit.golden_refine("fourier", tpl, x, mask, exposure, phis[:, 1], phis[:, 2].contiguous(), cfg)
+
+        class Refusing:  # the card refuses every cluster launch
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def toafit_golden(*args):
+                return 801  # cudaErrorNotSupported
+
+        monkeypatch.setattr(toafit, "_LIB", Refusing())
+        toafit.reset_launches()
+        segs = [np.random.RandomState(r).uniform(0, 1, 700 + 50 * r) for r in range(3)]
+        phases, masks = toafit.pad_segments(segs)
+        with pytest.raises(KernelError, match="toafit_golden"):
+            toafit.fit_toas_batch("fourier", tpl, phases, masks, [70.0, 75.0, 80.0], cfg, device=cuda_device)
+        # the brute grid ran; no chain of one-phase sweeps and no twin took the refine's place
+        assert toafit.LAUNCHES == {"profile_sweep": 1, "golden_refine": 0}
 
 
 @pytest.mark.gpu

@@ -11,18 +11,25 @@ C interface the wrapper binds.
   rtol 1e-5 (the f32 sums of bf16 products in another order).
 - Per-row templates against a loop over the rows, each with its own
   template (rtol 1e-12: the rows' event sums are the same sums).
+- The golden-section refine's plain version, ``golden_refine_reference``,
+  bitwise ``golden_section`` over the twin's one-phase sweeps plus the
+  twin's sweep at the optimum, whose LL is the refine's maximum, for the
+  three families and the three norm solves; ``fit_segment`` on CPU tensors
+  bitwise the composition it had before the refine was one launch (the
+  golden section over ``profile_loglik``, then the nuisance sweep).
 - The routing: with the wrapper's device predicate saying "card" and its
-  launcher replaced by a recorder that returns the twin, a fit_segment of
-  the north star's shape (n_brute 128, refine_iters 25) makes one launch
-  for the brute grid, 2 + 2 refine_iters for the golden section, one for
-  the nuisance solve, one for the dense error window and one per pass of
-  the error scan's fallback loop, with results bitwise the unpatched CPU
-  run's.
+  launchers replaced by recorders that return the plain versions, a
+  fit_segment of the north star's shape (n_brute 128, refine_iters 25)
+  makes one sweep launch for the brute grid, one golden-refine launch (the
+  refine and the nuisance solve), one sweep for the dense error window and
+  one per pass of the error scan's fallback loop, with results bitwise the
+  unpatched CPU run's.
 - Every symbol the wrapper binds with ctypes is an ``extern "C"`` function
-  of csrc/toafit.cu with as many parameters, and the source's limits and
-  codes are the wrapper's.
-- K5's cost row counts f64 operations and ``obs roofline`` holds it to the
-  card's f64 peak.
+  of csrc/toafit.cu with as many parameters, and the source's limits,
+  codes and golden-ratio constant are the wrapper's.
+- K5's cost rows count f64 operations (the golden refine the one-phase
+  sweeps it evaluates) and ``obs roofline`` holds them to the card's f64
+  peak.
 """
 
 import copy
@@ -39,7 +46,8 @@ from crimp_tpu.models import profiles as jax_profiles
 from crimp_tpu.ops import toafit as jax_toafit
 from crimp_tpu_torch.models import profiles
 from crimp_tpu_torch.obs import costmodel, roofline
-from crimp_tpu_torch.ops import toafit
+from crimp_tpu_torch.ops import optimize, toafit
+from crimp_tpu_torch.resilience import KernelError
 
 torch.set_num_threads(2)
 
@@ -183,17 +191,26 @@ class TestRouting:
             plain = toafit.fit_segment(profiles.FOURIER, tpl, x, mask, exposure, cfg)
         calls = []
 
-        def launcher(kind, tpl_, x_, mask_, exposure_, phis_, cfg_, events):
-            calls.append(tuple(phis_.shape))
-            for t in (x_, mask_, exposure_, phis_, *events.values()):
+        def operands_ok(kind, tpl_, x_, cfg_, events, *tensors):
+            for t in (*tensors, *events.values()):
                 assert t.is_contiguous()
-            # the fit's operands, computed once, are the sweep's own rows'
+            # the fit's operands, computed once, are the launch's own rows'
             for key, val in toafit.sweep_events(kind, tpl_, x_, cfg_).items():
                 assert torch.equal(events[key], val), key
+
+        def launcher(kind, tpl_, x_, mask_, exposure_, phis_, cfg_, events):
+            calls.append(("sweep", tuple(phis_.shape)))
+            operands_ok(kind, tpl_, x_, cfg_, events, x_, mask_, exposure_, phis_)
             return toafit.profile_sweep_reference(kind, tpl_, x_, mask_, exposure_, phis_, cfg_)
+
+        def golden(kind, tpl_, x_, mask_, exposure_, lo, hi, cfg_, events):
+            calls.append(("golden", tuple(lo.shape)))
+            operands_ok(kind, tpl_, x_, cfg_, events, x_, mask_, exposure_, lo, hi)
+            return toafit.golden_refine_reference(kind, tpl_, x_, mask_, exposure_, lo, hi, cfg_)
 
         monkeypatch.setattr(toafit, "_on_card", lambda t: True)
         monkeypatch.setattr(toafit, "_launch_profile", launcher)
+        monkeypatch.setattr(toafit, "_launch_golden", golden)
         with torch.no_grad():
             routed = toafit.fit_segment(profiles.FOURIER, tpl, x, mask, exposure, cfg)
         for key in plain:
@@ -208,19 +225,83 @@ class TestRouting:
             k_star = np.rint((plain[key].numpy() - step / 2) / step).astype(int) - 1
             passes += int(max(0, *(-(-(k - W) // cfg.err_chunk) for k in k_star)))
         assert (passes == 0) == (window < 0)
-        assert len(calls) == 1 + (2 + 2 * cfg.refine_iters) + 1 + 1 + passes
-        assert calls[0] == (3, 128)  # the whole brute grid in one sweep
-        assert calls[-1 - passes] == (3, 2 * W) and calls[-2 - passes] == (3, 1)
+        # the brute grid in one sweep, the refine and its nuisance solve in
+        # one launch, the dense window, then the fallback passes
+        assert calls[:3] == [("sweep", (3, 128)), ("golden", (3,)), ("sweep", (3, 2 * W))]
+        assert len(calls) == 3 + passes
+        assert all(kind == "sweep" and shape[1] == cfg.err_chunk for kind, shape in calls[3:])
 
     def test_cpu_tensors_take_the_twin(self, monkeypatch):
         def refuse(*a, **k):
             raise AssertionError("a CPU tensor launched K5")
 
         monkeypatch.setattr(toafit, "_launch_profile", refuse)
+        monkeypatch.setattr(toafit, "_launch_golden", refuse)
+        toafit.reset_launches()
         tpl, x, mask, exposure = _fit_inputs()
         phis = torch.zeros(3, 2, dtype=torch.float64)
         ll, a, b = toafit.profile_sweep(profiles.FOURIER, tpl, x, mask, exposure, phis, toafit.ToAFitConfig())
         assert ll.shape == a.shape == b.shape == (3, 2) and toafit.LAUNCHES["profile_sweep"] == 0
+        out = toafit.golden_refine(profiles.FOURIER, tpl, x, mask, exposure, phis[:, 0] - 0.1, phis[:, 0] + 0.1,
+                                   toafit.ToAFitConfig(refine_iters=3))
+        assert [t.shape for t in out] == [(3,)] * 4 and toafit.LAUNCHES == {"profile_sweep": 0, "golden_refine": 0}
+
+
+class TestGoldenRefine:
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_reference_is_golden_section_over_the_twin(self, kind, mode):
+        leaves, x, mask, exposure, phis = (torch.as_tensor(v) if isinstance(v, np.ndarray) else v
+                                           for v in _operands(kind, seed=16))
+        tpl = _port_tpl(leaves)
+        cfg = toafit.ToAFitConfig(kind=kind, refine_iters=9, **MODES[mode])
+        lo, hi = phis[:, 3].clone(), phis[:, 4].clone()
+
+        def ll_of(phi):
+            return toafit.profile_sweep_reference(kind, tpl, x, mask, exposure, phi[:, None], cfg)[0][:, 0]
+
+        phi_w, ll_w = optimize.golden_section(ll_of, lo, hi, iters=cfg.refine_iters)
+        ll_at, a_w, b_w = toafit.profile_sweep_reference(kind, tpl, x, mask, exposure, phi_w[:, None], cfg)
+        got = toafit.golden_refine_reference(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        for g, w in zip(got, (phi_w, ll_w, a_w[:, 0], b_w[:, 0])):
+            assert torch.equal(g, w)
+        # the optimum's (A, b) come from the evaluation that picked it: its LL
+        # is the refine's maximum, and the optimum lies inside the bracket
+        assert torch.equal(ll_at[:, 0], got[1]) and bool(torch.all((lo <= got[0]) & (got[0] <= hi)))
+        assert bool(torch.all(torch.isfinite(got[1])))
+
+    @pytest.mark.parametrize("mode", sorted(MODES))
+    @pytest.mark.parametrize("kind", KINDS)
+    def test_cpu_fit_is_the_composition_before_the_one_launch_refine(self, kind, mode):
+        """fit_segment on CPU tensors against the steps it ran before the
+        refine became ``golden_refine``: the golden section over
+        ``profile_loglik``, then a one-phase nuisance sweep at its optimum."""
+        cfg = toafit.ToAFitConfig(kind=kind, ph_shift_res=200, n_brute=48, brute_chunk=16, refine_iters=12,
+                                  err_chunk=8, err_dense_window=6, **MODES[mode])
+        if kind == profiles.FOURIER:
+            tpl, x, mask, exposure = _fit_inputs(seed=17)
+        else:
+            leaves, x, mask, exposure, _ = _operands(kind, seed=17)
+            tpl, x, mask, exposure = _port_tpl(leaves), *(torch.as_tensor(v) for v in (x, mask, exposure))
+        with torch.no_grad():
+            got = toafit.fit_segment(kind, tpl, x, mask, exposure, cfg)
+            S, half = x.shape[0], toafit._phase_range(kind)
+            brute = torch.as_tensor(np.linspace(-half, half, cfg.n_brute))
+            ll_brute = torch.cat([toafit.profile_loglik(kind, tpl, x, mask, exposure, p.expand(S, cfg.brute_chunk),
+                                                        cfg)[0] for p in brute.reshape(-1, cfg.brute_chunk)], dim=1)
+            phi0 = brute[torch.argmax(ll_brute, dim=1)]
+            step = 2 * half / (cfg.n_brute - 1)
+            phi, ll_max = optimize.golden_section(
+                lambda p: toafit.profile_loglik(kind, tpl, x, mask, exposure, p[:, None], cfg)[0][:, 0],
+                phi0 - step, phi0 + step, iters=cfg.refine_iters)
+            _, a, b = toafit.profile_loglik_full(kind, tpl, x, mask, exposure, phi[:, None], cfg)
+            err_lo, err_hi, iters = toafit._error_scan(kind, tpl, x, mask, exposure, phi, ll_max, cfg)
+            red = toafit._binned_chi2(kind, tpl, x, mask, exposure, phi, a[:, 0], b[:, 0], cfg)
+        want = {"phShift": phi, "phShift_LL": err_lo, "phShift_UL": err_hi, "norm": a[:, 0], "ampShift": b[:, 0],
+                "logLmax": ll_max, "redChi2": red, "errScanLoopIters": iters}
+        for key, val in want.items():
+            assert torch.equal(got[key], val), key
+        assert torch.equal(got["theta_best"][:, 0], a[:, 0])
 
 
 def _c_functions(src: str) -> dict:
@@ -251,7 +332,7 @@ class TestCInterface:
         monkeypatch.setattr(toafit, "_LIB", None)
         lib = toafit._lib()
         funcs = _c_functions((REPO / "crimp_tpu_torch" / "csrc" / "toafit.cu").read_text())
-        assert set(lib.symbols) == {"toafit_profile", "toafit_smem_events"}
+        assert set(lib.symbols) == {"toafit_profile", "toafit_golden", "toafit_smem_events"}
         for name, sym in lib.symbols.items():
             assert name in funcs, f"{name} is bound but csrc/toafit.cu has no extern \"C\" {name}"
             assert len(sym.argtypes) == funcs[name], name
@@ -267,6 +348,23 @@ class TestCInterface:
         assert (toafit.NORM_NEWTON, toafit.NORM_JOINT, toafit.NORM_FIXED) == (0, 1, 2)
         assert toafit.norm_mode(toafit.ToAFitConfig(vary_amps=True, fix_norm=True)) == toafit.NORM_JOINT
         assert "toafit" in __import__("crimp_tpu_torch.ops.z2_grid", fromlist=["SOURCES"]).SOURCES
+
+    def test_golden_entry_limits_and_constants(self):
+        """toafit_golden: a cluster of two blocks a row (so at most
+        (2^31 - 1) // 2 rows on gridDim.x), no negative refine_iters, and the
+        golden-ratio conjugate with the bits of optimize.PHI."""
+        src = (REPO / "crimp_tpu_torch" / "csrc" / "toafit.cu").read_text()
+        golden = src[src.index('extern "C" int toafit_golden('):]
+        assert f"n_rows > {(2 ** 31 - 1) // 2}" in golden and "refine_iters < 0" in golden
+        assert "gridDim = dim3(static_cast<unsigned>(2 * n_rows))" in golden
+        assert "clusterDim.x = 2;" in golden and "cudaLaunchAttributeClusterDimension" in golden
+        phi = re.search(r"constexpr double PHI = (0x[0-9a-fp.+-]+);", src).group(1)
+        assert float.fromhex(phi) == optimize.PHI
+        assert int(dict(re.findall(r"constexpr int (\w+) = (\d+);", src))["THREADS"]) == 512
+        tpl, x, mask, exposure = _fit_inputs()
+        with pytest.raises(KernelError, match="refine_iters"):
+            toafit._launch_golden(profiles.FOURIER, tpl, x, mask, exposure, exposure * 0, exposure * 0 + 1,
+                                  toafit.ToAFitConfig(refine_iters=-1))
 
 
 class TestCostRow:
@@ -287,3 +385,10 @@ class TestCostRow:
         del doc["costmodel"]["toa_sweep_brute"]["flops_dtype"]  # held to the f32 peak, it would read half
         assert roofline.analyze(doc)["rows"][0]["pct_of_roof"] == pytest.approx(row["pct_of_roof"] * 34 / 67,
                                                                               rel=1e-3)
+
+    @pytest.mark.parametrize("mode", [toafit.NORM_NEWTON, toafit.NORM_JOINT, toafit.NORM_FIXED])
+    def test_golden_counts_are_the_one_phase_sweeps_it_evaluates(self, mode):
+        one = costmodel.k5_counts(84, 1, 9991.5, 6, profiles.FOURIER, mode, 20)
+        got = costmodel.k5_golden_counts(84, 9991.5, 6, profiles.FOURIER, mode, 20, 25)
+        assert got == {"flops": 52 * one["flops"], "bytes_accessed": 52 * one["bytes_accessed"],
+                       "flops_dtype": "f64"}
