@@ -23,8 +23,9 @@ block, ``EVENT_CHUNK`` 1024 events per shared-memory stage; K3: ``THREADS``
 split across blocks: ``event_block`` is the split length ``per_split`` (a
 multiple of 1024 events; each split is summed from zero and the splits are
 added in order), ``trial_block`` the kernel's fixed trial tile. The static
-plan is ``z2_grid.default_per_split`` (``n_split_for``) for K2 and
-``z2_general.default_per_split`` (``plan_splits``) for K3. The split length
+plan is ``z2_grid.default_per_split`` for K2 and
+``z2_general.default_per_split`` for K3, each ``z2_general.plan_splits``
+fed its kernel's resident blocks. The split length
 moves f32/f64 rounding, never the statistic beyond the twin tolerances. For
 the factorized ("grid_mxu") path the pair is its matmul block shape.
 
@@ -67,7 +68,11 @@ from crimp_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
-CACHE_VERSION = 1
+# 2: K2 forms one sin/cos per register block of trials and rotates for the
+# rest, with a wave-fitted static plan; split verdicts and cost rows taken on
+# the direct-form kernel (version 1) no longer apply, so such a file is read
+# as empty and rewritten whole by the next store
+CACHE_VERSION = 2
 
 MULTISOURCE_ENV = "CRIMP_TORCH_MULTISOURCE"
 MULTISOURCE_MAX_PAD_ENV = "CRIMP_TORCH_MULTISOURCE_MAX_PAD"
@@ -276,7 +281,7 @@ def static_defaults(kernel: str, n_events: int = 1, n_trials: int = 1, *, n_rows
         return (z2_general.default_per_split(n_events, n_freq, n_rows, nharm, trig, poly and trig == torch.float32,
                                              dev), z2_general.THREADS)
     n_blocks = int(n_rows) * -(-n_freq // z2_grid.TRIAL_TILE)
-    return z2_grid.default_per_split(n_events, n_blocks, dev), z2_grid.TRIAL_TILE
+    return z2_grid.default_per_split(n_events, n_blocks, dev, nharm, poly), z2_grid.TRIAL_TILE
 
 
 def _valid_blocks(kernel: str, eb, tb) -> bool:

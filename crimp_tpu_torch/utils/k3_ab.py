@@ -23,7 +23,8 @@ prints:
   trials, nharm 25, polynomial (the H-test shape); (c) as (a) with f32
   sincosf. Each beside its bound (``shape_bounds``), timed in turns:
   parent, K3 as ``general_sums`` plans it (``plan_splits``), the same
-  kernel split by ``z2_grid.n_split_for`` (twice), K3 again, parent; the
+  kernel split by K2's former heuristic (``k2_ab.legacy_n_split``, twice),
+  K3 again, parent; the
   Z^2 of each against K3's; the SM clock (``nvidia-smi``, sampled every
   50 ms) while K3 runs, and the warp-instruction issue rate that the SASS
   count and that clock imply. ``--out`` writes everything as JSON.
@@ -150,13 +151,15 @@ def build_parent(src: str) -> tuple[str, str]:
 
 
 def split_for_sums(lib, times, freqs, nharm, poly, trials_per_block, extra=()):
-    """K3 from ``lib`` with the event split of K2's heuristic (``z2_grid.n_split_for``)
+    """K3 from ``lib`` with the event split of K2's former heuristic (``k2_ab.legacy_n_split``)
     over blocks of ``trials_per_block`` trials, as the PR 3/4 wrapper planned it;
     ``extra`` ends the C call (the new entry point's pass counter)."""
     n, n_freq = times.shape[0], freqs.shape[0]
     z = torch.zeros(1, dtype=torch.float64, device=times.device)
     n_chunks = -(-n // 1024)
-    n_split = z2_grid.n_split_for(-(-n_freq // trials_per_block), n_chunks, times.device)
+    from crimp_tpu_torch.utils.k2_ab import legacy_n_split
+
+    n_split = legacy_n_split(-(-n_freq // trials_per_block), n_chunks, times.device)
     per_split = -(-n_chunks // n_split) * 1024
     n_split = -(-n // per_split)
     shape = (2, 1, 1, nharm, n_freq)
@@ -332,7 +335,7 @@ def main() -> int:
         print(f"shape ({name}) {freqs.shape[0]} trials nharm {nharm} poly={poly}: K3 "
               + " / ".join(f"{v:.3f}" for v in row["ms"]) + f" ms (plan {row['plan']}), bound "
               f"{row['bound_ms']:.2f} ms ({by}; {100 * row['share_of_bound']:.1f}% of bound); the same kernel "
-              "split by n_split_for " + " / ".join(f"{v:.3f}" for v in row["n_split_for_ms"]) + " ms"
+              "split by K2's former heuristic " + " / ".join(f"{v:.3f}" for v in row["n_split_for_ms"]) + " ms"
               + (", parent " + " / ".join(f"{v:.3f}" for v in row["parent_ms"]) + " ms" if old else "")
               + (f"; SM clock median {np.median(clocks):.0f} MHz over {len(clocks)} samples" if clocks else "")
               + (f", {row['cycles_per_warp_pair']:.1f} cycles per warp of pairs per scheduler, issue "

@@ -78,7 +78,8 @@ class TestStaticPlan:
         assert autotune.static_defaults("general", 10_000, 1000, device=CPU) == (10240, z2_general.THREADS)
         assert autotune.static_defaults("grid_mxu") == (search.MXU_EVENT_BLOCK, search.MXU_TRIAL_BLOCK)
         assert autotune.static_defaults("multisource") == autotune.multisource_blocks()
-        # on the card: n_split_for's and plan_splits' plans
+        # off the card the K2 plan is one split of every event (on the card:
+        # plan_splits over the kernel's resident blocks, tests/test_torch_z2_rotation.py)
         plan = z2_grid.default_per_split(839259, 40 * 10, torch.device("cpu"))
         assert plan == 820 * 1024
 

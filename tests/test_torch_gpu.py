@@ -9,7 +9,10 @@ K1 must return 524800; K2 must match its plain twin on the same card
 tensors within TestPallasZ2's rtol 2e-3 / atol 0.05 with identical argmax,
 and two runs must be bitwise equal; with weights, a fddot row and f32
 sin/cos as well; weights of 1.0 must give the unweighted sums and a zero
-fddot row the 2-D sums bit for bit. K3 must match its twin and the textbook
+fddot row the 2-D sums bit for bit; K2 must match its mirror (the plain
+form of its rotation arithmetic) within rtol 1e-4 / atol 5e-3 at each
+nharm's register block, with weights, a fddot row and either trig, at
+the kernel's own split plan. K3 must match its twin and the textbook
 Z^2 (rtol 1e-8 with f64 trig, rtol 1e-4 / atol 5e-3 with f32 trig,
 TestZ2's figures) and rerun bitwise; the streamed grids must equal the
 monolithic ones bit for bit. The device fold, fit and H-test, the
@@ -92,6 +95,27 @@ class TestKernels:
         np.testing.assert_allclose(z.reshape(3, -1), z_ref.reshape(3, -1), rtol=2e-3, atol=0.05)
         for row in range(3):
             assert int(np.argmax(z[row])) == int(np.argmax(z_ref[row]))
+
+    @pytest.mark.parametrize("nharm", [1, 2, 3, 5, 6, 20])
+    def test_k2_matches_its_mirror(self, cuda_device, nharm):
+        # 20011 events: 19 full chunks and a ragged one; 3 fdot rows x 2 tiles
+        # = 6 (tile, row) pairs, so the last block of R = 4 or 8 pairs is partly idle
+        n = 20011
+        rng = np.random.RandomState(4)
+        t = torch.as_tensor(_pulsed(n), device=cuda_device)
+        w = torch.as_tensor(rng.uniform(0.5, 1.5, n).astype(np.float32), device=cuda_device)
+        hf = torch.tensor([-5e-11, 0.0, 5e-11], dtype=torch.float64, device=cuda_device)
+        sf = torch.tensor([-1e-16, 1e-16], dtype=torch.float64, device=cuda_device) / 6.0
+        for kw in ({"poly": True}, {"poly": True, "weights": w, "sixth_fddots": sf},
+                   {"poly": False, "weights": w}):
+            plan = z2_grid.default_per_split(n, 2 * 3 * (2 if "sixth_fddots" in kw else 1), cuda_device, nharm,
+                                             kw["poly"])
+            got = z2_grid.z2_tile_sums(t, 0.2495, 3e-6, hf, 2, nharm, per_split=plan, **kw)
+            mirror = z2_grid.z2_tile_sums_mirror(t, 0.2495, 3e-6, hf, 2, nharm, per_split=plan, **kw)
+            z, z_m = _z2(got, n).reshape(-1, 512), _z2(mirror, n).reshape(-1, 512)
+            np.testing.assert_allclose(z, z_m, rtol=1e-4, atol=5e-3, err_msg=str(sorted(kw)))
+            for row in range(z.shape[0]):
+                assert int(np.argmax(z[row])) == int(np.argmax(z_m[row]))
 
     def test_search_on_card_matches_cpu_twin(self, cuda_device):
         t = _pulsed(5000)
