@@ -12,8 +12,9 @@ into achieved FLOP/s, bytes/s and a share of the card's roofline. XLA's
   K4 B*E*(P + 2)*8 bytes (:func:`k4_counts`), K5 the f64 operations of a
   profile sweep (:func:`k5_counts`; its golden-section refine, the
   one-phase sweeps it evaluates, :func:`k5_golden_counts`; held to the f64
-  peak through the row's ``flops_dtype``); bytes count each input read
-  once and each output written once;
+  peak through the row's ``flops_dtype``), K6 the f64 operations of the
+  readvaryparam Nelder-Mead's evaluations that the data's decisions need
+  (:func:`k6_counts`, the same peak); bytes count each input read once and each output written once;
 - **the tensors themselves** for ``argument_bytes`` and ``output_bytes``;
 - **``torch.utils.flop_counter.FlopCounterMode``** for torch code, by
   running the function once on ``meta`` tensors (no data, no card work);
@@ -332,6 +333,48 @@ def k5_golden_counts(n_rows: int, n_events: float, n_comp: int, kind: str, mode:
     one = k5_counts(n_rows, 1, n_events, n_comp, kind, mode, newton_iters, bf16)
     evals = 2 + 2 * int(refine_iters)
     return {"flops": evals * one["flops"], "bytes_accessed": evals * one["bytes_accessed"], "flops_dtype": "f64"}
+
+
+# f64 operations per (problem, evaluation, masked event) of K6, by family:
+# per component the angle (Fourier: + loc, - j phi; vM and Cauchy: x - cen,
+# - phi), cos, the term (Fourier: a product; vM: kappa cos, exp, a product;
+# Cauchy: cosh(wid) - cos, a division) and its sum. The Fourier j 2 pi x
+# does not depend on the vertex or the phase: one operation a (row, masked
+# event, component), charged once (K6_FOURIER_EVENT_OPS)
+K6_COMP_OPS = {"fourier": 5, "vonmises": 7, "cauchy": 6}
+K6_FOURIER_EVENT_OPS = 1  # j 2 pi x, a component
+K6_EVENT_OPS = 6  # norm + the sum, / norm factor, the clamp, log, the minimum, the log-sum
+
+
+def k6_ops_per_event(n_comp: int, kind: str) -> int:
+    """f64 operations of one K6 evaluation per masked event."""
+    return K6_COMP_OPS[kind] * int(n_comp) + K6_EVENT_OPS
+
+
+def k6_counts(n_rows: int, n_phis: int, n_events: float, n_comp: int, kind: str, n_free: int, n_reads: float,
+              n_shrinks: float) -> dict:
+    """K6, the bounded Nelder-Mead of S = ``n_rows`` rows x P = ``n_phis``
+    phases, ``n_events`` the masked events a row (the mean for ragged rows),
+    F = ``n_free`` free parameters. The evaluations are those the data
+    needs: F + 1 for every problem's initial simplex, ``n_reads`` the
+    candidate values all problems' decision trees read (the kernel's
+    ``reads`` output: 1 to 3 a step, where K6 evaluates 4) and F for each of
+    the ``n_shrinks`` shrink steps (its ``shrinks``); each
+    ``k6_ops_per_event`` operations per event, a cos, exp, log or division
+    counted as one (as ``k5_counts``), and for Fourier j 2 pi x once a (row,
+    event, component). The per-vertex work (the transform, i0, the
+    constants) and the simplex's bookkeeping do not scale with the events
+    and are left out. Bytes: the phases (8) and mask (1) of every event,
+    exposure, the phases' grid and the starts read once, the LL, vectors
+    and the two counts written."""
+    S, P = float(n_rows), float(n_phis)
+    D = 3 * int(n_comp) + 2
+    evals = S * P * (n_free + 1) + float(n_reads) + float(n_free) * float(n_shrinks)
+    ops = evals * float(n_events) * k6_ops_per_event(n_comp, kind)
+    if kind == "fourier":
+        ops += S * float(n_events) * int(n_comp) * K6_FOURIER_EVENT_OPS
+    nbytes = S * float(n_events) * 9 + S * 8 + S * P * 8 + S * n_free * 8 + 8 * D + S * P * (8 + 8 * D + 8)
+    return {"flops": ops, "bytes_accessed": nbytes, "flops_dtype": "f64", "evaluations": evals}
 
 
 # -- disk tier (the autotune cache file, "cost|" keys) -----------------------------

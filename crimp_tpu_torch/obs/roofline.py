@@ -14,7 +14,8 @@ Peak table: the NVIDIA H100 SXM (NVIDIA's H100 data sheet, dense rates
 without sparsity, at the 700 W power limit): 67 TFLOP/s in f32 outside the
 tensor cores, the rate ``PERF.md``'s bounds use for K2 and K3 (K4's
 bound is its bytes), 34 TFLOP/s in f64 outside the tensor cores
-(``flops_f64``, which rows with ``flops_dtype`` "f64" meet: K5), 3.35 TB/s
+(``flops_f64``, which rows with ``flops_dtype`` "f64" meet: K5's
+``toa_sweep_*`` and K6's ``toa_general_*``), 3.35 TB/s
 of HBM3, 900 GB/s of NVLink (no one-card
 row uses it). A card set below 700 W runs slower under load: read a share
 beside the card's power limit. The CPU entry is JAX's order-of-magnitude
@@ -158,7 +159,7 @@ def analyze(doc: dict) -> dict:
                      and isinstance(nbytes, (int, float)) and nbytes else None)
         pct = None
         bound = None
-        # a row counting operations of another type (K5: f64) meets that
+        # a row counting operations of another type (K5, K6: f64) meets that
         # type's peak where the table has one
         dtype = cost.get("flops_dtype")
         peak_flops = (peak.get(f"flops_{dtype}") or peak["flops"]) if peak else None

@@ -1,0 +1,371 @@
+"""The readvaryparam ToA fit's profile: every flagged template parameter
+refit per (segment, phase) by a fixed-iteration bounded Nelder-Mead.
+
+Port of ``_general_profile_vecs`` (``crimp_tpu/ops/toafit.py:428-459``),
+``nelder_mead`` (``crimp_tpu/ops/optimize.py:54-119``) and
+``extended_loglik`` (``crimp_tpu/models/profiles.py:173-204``), which the
+JAX package fuses under ``fit_toas_batch``'s jit. ``general_profile`` is
+the entry point ``ops/toafit.py`` routes ``cfg.free_idx`` to:
+
+- on a CUDA tensor one launch of K6 (``csrc/toafit_general.cu``
+  ``toafit_general_nm``): a 512-thread block a (row, phase) problem runs
+  its whole Nelder-Mead with the simplex in shared memory and evaluates
+  four vertices a pass over the events, the shrink vertices only in the
+  steps that shrink, and reports per problem the shrink steps and the
+  candidate values its decisions read (what ``costmodel.k6_counts``
+  charges). ``LAUNCHES["general_sweep"]`` counts these launches.
+  Operands K6 cannot take raise ``KernelError``; nothing falls back;
+- on a CPU tensor the plain twin ``general_profile_reference``: the
+  branch-free ``optimize.nelder_mead`` over ``general_nll``.
+
+``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
+m, N) temporaries: the template with the free entries set to
+``lo + span * (1 / (1 + exp(-u)))``, the curve with each term in the
+order K6 takes it, and the event sums in K6's fixed order
+(``block_sum``), so a problem's value does not depend on the problems
+beside it. ``general_eval`` gives K6's values at given points (its
+``toafit_general_eval`` entry, ``LAUNCHES["general_eval"]``) or the twin's.
+``mirror_profile`` runs the twin's ``optimize.nelder_mead`` over either,
+with the decision of every step, to find the step where two runs part.
+Whether a tensor takes K6 is ``toafit._on_card``'s one test (imported at
+call time: ``ops/toafit.py`` imports this module).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from crimp_tpu_torch import resilience
+from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES
+from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.ops.optimize import bounded_transform, nelder_mead
+from crimp_tpu_torch.utils import profiling
+
+_F64 = torch.float64
+
+THREADS = 512  # csrc/toafit_general.cu THREADS: the event sums' fixed order
+WARP = 32
+MAX_COMP = 16  # csrc/toafit_general.cu MAX_COMP (and so at most 3 MAX_COMP + 2 free parameters)
+INIT_SCALE = 0.25  # the initial simplex's step (JAX's _general_profile_vecs)
+_KIND_CODE = {FOURIER: 0, VONMISES: 1, CAUCHY: 2}
+STEP_NAMES = ("expand", "reflect", "outside", "inside", "shrink")  # K6's trace codes
+INV_TWO_PI = 1.0 / (2 * math.pi)
+
+LAUNCHES = {"general_sweep": 0, "general_eval": 0}
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+# guards LAUNCHES (fits run beside the heartbeat and a serving engine's prep thread)
+_STATE_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    with _STATE_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+
+
+def _count_launch(key: str) -> None:
+    with _STATE_LOCK:
+        LAUNCHES[key] += 1
+
+
+# ---------------------------------------------------------------------------
+# Host packing: what K6 and its twin take
+# ---------------------------------------------------------------------------
+
+
+def flatten_template(tpl) -> torch.Tensor:
+    """[norm, amp_1..K, loc_1..K, wid_1..K, ampShift], (D,) f64."""
+    return torch.cat([tpl.norm[..., None], tpl.amp, tpl.loc, tpl.wid, tpl.amp_shift[..., None]], dim=-1)
+
+
+def pack(tpl, cfg, n_rows: int, warm_vec=None, device=None) -> dict:
+    """K6's problem operands on ``device``: ``base`` the template's
+    flattened vector (D,), ``free_idx`` (F,) int32, ``lo`` and ``span`` =
+    hi - lo (F,) f64, and ``u0`` (S, F), the start to_unbounded(start[
+    free_idx]) of every row, ``start`` the template or ``warm_vec`` (S, D)."""
+    device = tpl.norm.device if device is None else device
+    base = flatten_template(tpl).to(device=device, dtype=_F64)
+    idx = torch.as_tensor(cfg.free_idx, dtype=torch.long, device=device)
+    tf = bounded_transform(cfg.free_lo, cfg.free_hi)
+    start = base.expand(n_rows, -1) if warm_vec is None else warm_vec.to(device=device, dtype=_F64)
+    return {"base": base.contiguous(), "free_idx": idx.to(torch.int32).contiguous(), "idx": idx,
+            "lo": tf.lo.to(device).contiguous(), "span": (tf.hi - tf.lo).to(device).contiguous(),
+            "u0": tf.to_unbounded(start[:, idx]).contiguous()}
+
+
+def to_bounded(pk: dict, u: torch.Tensor) -> torch.Tensor:
+    """lo + span * sigmoid(u), sigmoid written 1 / (1 + exp(-u)) as K6 and
+    torch's CUDA sigmoid compute it."""
+    return pk["lo"] + pk["span"] * (1.0 / (1.0 + torch.exp(-u)))
+
+
+def vectors(pk: dict, u: torch.Tensor) -> torch.Tensor:
+    """Flattened template vectors (..., D) at unbounded points u (..., F)."""
+    vec = pk["base"].expand(*u.shape[:-1], pk["base"].shape[0]).clone()
+    vec[..., pk["idx"]] = to_bounded(pk, u)
+    return vec
+
+
+# ---------------------------------------------------------------------------
+# The twin's evaluation
+# ---------------------------------------------------------------------------
+
+
+def block_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in K6's fixed order: thread t of 512 adds
+    elements t, t + 512, ... in turn from +0.0, the 32 lanes of a warp meet
+    in a halving tree (lane l takes l + 16, then l + 8, ...), then the 16
+    warp sums the same way. Padding adds +0.0. -> v.shape[:-1]."""
+    n = v.shape[-1]
+    pad = (-n) % THREADS
+    if pad or n == 0:
+        v = torch.nn.functional.pad(v, (0, pad if n else THREADS))
+    chunks = v.reshape(*v.shape[:-1], -1, THREADS)
+    acc = torch.zeros(chunks.shape[:-2] + (THREADS,), dtype=v.dtype, device=v.device)
+    for c in range(chunks.shape[-2]):
+        acc = acc + chunks[..., c, :]
+    acc = acc.reshape(*acc.shape[:-1], THREADS // WARP, WARP)
+    half = WARP
+    while half > 1:
+        half //= 2
+        acc = acc[..., :half] + acc[..., half:2 * half]
+    acc = acc[..., 0]
+    half = THREADS // WARP
+    while half > 1:
+        half //= 2
+        acc = acc[..., :half] + acc[..., half:2 * half]
+    return acc[..., 0]
+
+
+def general_nll(kind: str, pk: dict, x, mask, exposure, phis, u) -> torch.Tensor:
+    """-extended_loglik at unbounded points u (S, P, m, F) of the rows x,
+    mask (S, N), exposure (S,) at phases phis (S, P) -> (S, P, m): the twin
+    of K6's evaluation (module docstring), each operation the one K6 takes."""
+    vec = vectors(pk, u)
+    K = (vec.shape[-1] - 2) // 3
+    norm, amp_sh = vec[..., 0], vec[..., 1:1 + K] * vec[..., -1:]
+    # every component at once over (S, P, m, K, N); the K terms then summed in order
+    xs, ph = x[:, None, None, None, :], phis[:, :, None, None, None]
+    loc = vec[..., 1 + K:1 + 2 * K, None]
+    if kind == FOURIER:
+        j = torch.tensor([float(k + 1) for k in range(K)], dtype=x.dtype, device=x.device)
+        cj = torch.tensor([float(k + 1) * 2 * math.pi for k in range(K)], dtype=x.dtype, device=x.device)
+        terms = amp_sh[..., None] * torch.cos(cj[:, None] * xs + loc - j[:, None] * ph)
+    else:
+        wid = vec[..., 1 + 2 * K:1 + 3 * K]
+        cd = torch.cos(xs - loc - ph)
+        if kind == VONMISES:
+            kappa = 1.0 / (wid * wid)
+            coef = amp_sh / ((2 * math.pi) * torch.special.i0(kappa))
+            terms = coef[..., None] * torch.exp(kappa[..., None] * cd)
+        else:
+            terms = ((amp_sh * INV_TWO_PI) * torch.sinh(wid))[..., None] / (torch.cosh(wid)[..., None] - cd)
+    total = terms[..., 0, :]
+    for k in range(1, K):
+        total = total + terms[..., k, :]
+    T = exposure[:, None, None]
+    if kind == FOURIER:
+        nf, expected = norm, norm * T
+    else:
+        q = amp_sh[..., 0]
+        for k in range(1, K):
+            q = q + amp_sh[..., k]
+        nf = (2 * math.pi) * norm + q
+        expected = (nf * T) * INV_TWO_PI
+    normalized = (norm[..., None] + total) / nf[..., None]
+    m = mask[:, None, None, :]
+    log_sum = block_sum(torch.where(m, torch.log(torch.clamp(normalized, min=1e-300)), 0.0))
+    min_val = torch.amin(torch.where(m, normalized, math.inf), dim=-1)
+    n_events = torch.sum(mask, dim=-1).to(x.dtype)[:, None, None]
+    value = -expected + n_events * torch.log(expected) + log_sum
+    return -torch.where(min_val <= 0, -math.inf, value)
+
+
+def general_profile_reference(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: list | None = None,
+                              evaluate=None):
+    """Plain twin of K6: (LL (S, P), refit vectors (S, P, D)), the
+    branch-free ``optimize.nelder_mead`` (``cfg.nm_iters`` steps, initial
+    step 0.25, its per-step records into ``trace``) over ``general_nll``
+    from every row's start, or over ``evaluate(u)`` (S, P, m, F) -> (S, P,
+    m) where given."""
+    S, P = phis.shape
+    pk = pack(tpl, cfg, S, warm_vec, x.device)
+    u0 = pk["u0"][:, None, :].expand(S, P, -1)
+    fn = evaluate or (lambda u: general_nll(kind, pk, x, mask, exposure, phis, u))
+    u_best, f_best = nelder_mead(fn, u0, init_scale=INIT_SCALE, iters=cfg.nm_iters, trace=trace)
+    return -f_best, vectors(pk, u_best)
+
+
+# ---------------------------------------------------------------------------
+# K6: build, bind, launch
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            from crimp_tpu_torch.ops import z2_grid
+
+            lib = ctypes.CDLL(str(z2_grid.build()["toafit_general"]))
+            vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.toafit_general_nm.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 6
+            lib.toafit_general_nm.restype = ci
+            lib.toafit_general_eval.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 2
+            lib.toafit_general_eval.restype = ci
+            _LIB = lib
+    return _LIB
+
+
+def _operands(entry: str, kind, tpl, x, mask, exposure, phis, cfg, warm_vec) -> dict | None:
+    """Check what K6's entry point takes and pack it; raises ``KernelError``
+    on anything else; an empty batch returns None."""
+    if kind not in _KIND_CODE:
+        raise resilience.KernelError(f"{entry}: K6 takes no template family {kind!r}")
+    if tpl.norm.dim() != 0:
+        raise resilience.KernelError(f"{entry}: K6 takes one shared template, not one a row")
+    K, F = tpl.n_comp, len(cfg.free_idx)
+    if not 1 <= K <= MAX_COMP:
+        raise resilience.KernelError(f"{entry}: K6 takes 1 to {MAX_COMP} template components, got {K}")
+    D = 3 * K + 2
+    if not 1 <= F <= D or len(set(cfg.free_idx)) != F or not all(0 <= i < D for i in cfg.free_idx) \
+            or len(cfg.free_lo) != F or len(cfg.free_hi) != F:
+        raise resilience.KernelError(f"{entry}: K6 takes 1 to {D} distinct free indices below {D} with "
+                                     f"a box each, got {cfg.free_idx}")
+    for name, (t, dtype, ndim) in {"x": (x, _F64, 2), "mask": (mask, torch.bool, 2),
+                                   "exposure": (exposure, _F64, 1), "phis": (phis, _F64, 2)}.items():
+        if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous() or t.device != x.device:
+            raise resilience.KernelError(
+                f"{entry}: K6 takes {name} as a contiguous {ndim}-D {dtype} tensor on x's device "
+                f"(got {t.dtype}, shape {tuple(t.shape)}, contiguous {t.is_contiguous()}, {t.device})")
+    S, N = x.shape
+    if mask.shape != (S, N) or exposure.shape != (S,) or phis.shape[0] != S:
+        raise resilience.KernelError(f"{entry}: shapes x {tuple(x.shape)}, mask {tuple(mask.shape)}, exposure "
+                                     f"{tuple(exposure.shape)}, phis {tuple(phis.shape)} do not line up")
+    if warm_vec is not None and tuple(warm_vec.shape) != (S, D):
+        raise resilience.KernelError(f"{entry}: warm_vec {tuple(warm_vec.shape)} is not ({S}, {D})")
+    if S == 0 or phis.shape[1] == 0:
+        return None
+    if N == 0:
+        raise resilience.KernelError(f"{entry}: K6 takes at least one event slot a row")
+    if S * phis.shape[1] > 2**31 - 1:
+        raise resilience.KernelError(f"{entry}: {S} x {phis.shape[1]} problems exceed K6's grid")
+    return pack(tpl, cfg, S, warm_vec, x.device)
+
+
+def _args(pk, x, mask, exposure, phis):
+    """The pointers both entry points take first."""
+    return (x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), phis.data_ptr(), pk["base"].data_ptr(),
+            pk["free_idx"].data_ptr(), pk["lo"].data_ptr(), pk["span"].data_ptr())
+
+
+def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bool = False):
+    """Check the operands and launch K6's Nelder-Mead once: (LL (S, P),
+    vectors (S, P, D), shrinks (S, P) int32, reads (S, P) int32 the
+    candidate values the decisions read, and the (S, P, nm_iters) int8
+    decisions with ``trace``, else None)."""
+    S, P = phis.shape
+    D = 3 * tpl.n_comp + 2
+    ll = torch.empty((S, P), dtype=_F64, device=x.device)
+    vec = torch.empty((S, P, D), dtype=_F64, device=x.device)
+    shrinks = torch.zeros((S, P), dtype=torch.int32, device=x.device)
+    reads = torch.zeros((S, P), dtype=torch.int32, device=x.device)
+    steps = torch.empty((S, P, cfg.nm_iters), dtype=torch.int8, device=x.device) if trace else None
+    if cfg.nm_iters < 0:
+        raise resilience.KernelError(f"general_sweep: K6 takes nm_iters >= 0, got {cfg.nm_iters}")
+    pk = _operands("general_sweep", kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+    if pk is None:
+        return ll, vec, shrinks, reads, steps
+    from crimp_tpu_torch.ops import z2_grid
+
+    lib = _lib()
+    with profiling.launch_window(x.device):
+        rc = lib.toafit_general_nm(*_args(pk, x, mask, exposure, phis), pk["u0"].data_ptr(), S, P,
+                                   x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters,
+                                   ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
+                                   None if steps is None else steps.data_ptr(), z2_grid.stream_of(x))
+    z2_grid.check_launch(rc, "toafit_general_nm")
+    _count_launch("general_sweep")
+    return ll, vec, shrinks, reads, steps
+
+
+def _launch_eval(kind, tpl, x, mask, exposure, phis, cfg, u):
+    """Check the operands and launch K6's evaluation once: f (S, P, M) at
+    u (S, P, M, F)."""
+    S, P = phis.shape
+    if u.dtype != _F64 or not u.is_contiguous() or u.device != x.device or u.dim() != 4 \
+            or tuple(u.shape[:2]) != (S, P) or u.shape[3] != len(cfg.free_idx):
+        raise resilience.KernelError(f"general_eval: K6 takes u as a contiguous (S, P, M, F) f64 tensor on x's "
+                                     f"device, got {u.dtype} {tuple(u.shape)}")
+    f = torch.empty(tuple(u.shape[:3]), dtype=_F64, device=x.device)
+    pk = _operands("general_eval", kind, tpl, x, mask, exposure, phis, cfg, None)
+    if pk is None or u.shape[2] == 0:
+        return f
+    from crimp_tpu_torch.ops import z2_grid
+
+    lib = _lib()
+    with profiling.launch_window(x.device):
+        rc = lib.toafit_general_eval(*_args(pk, x, mask, exposure, phis), u.data_ptr(), S, P,
+                                     x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), u.shape[2],
+                                     f.data_ptr(), z2_grid.stream_of(x))
+    z2_grid.check_launch(rc, "toafit_general_eval")
+    _count_launch("general_eval")
+    return f
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def general_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, site: str = "toa_general_sweep"):
+    """(LL (S, P), refit flattened vectors (S, P, D)): every (row, phase)
+    problem's bounded Nelder-Mead over the ``cfg.free_idx`` parameters,
+    started at the template or at ``warm_vec`` (S, D). One K6 launch on a
+    CUDA tensor (span and cost row ``site``), the twin on a CPU tensor."""
+    from crimp_tpu_torch.ops import toafit
+
+    if not toafit._on_card(x):
+        return general_profile_reference(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+    args = (x.contiguous(), mask.contiguous(), exposure.contiguous(), phis.contiguous())
+    with costmodel.kernel_span(site):
+        ll, vec, shrinks, reads, _ = _launch_nm(kind, tpl, *args, cfg, warm_vec)
+    costmodel.capture(site, None, kind, *args, cfg, out=[ll, vec],
+                      counts=lambda: costmodel.k6_counts(
+                          x.shape[0], phis.shape[1], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind,
+                          len(cfg.free_idx), float(reads.sum()), float(shrinks.sum())))
+    return ll, vec
+
+
+def general_eval(kind, tpl, x, mask, exposure, phis, cfg, u):
+    """f = -extended_loglik at unbounded points u (S, P, M, F), phase phis
+    (S, P): K6's evaluation on a CUDA tensor (the bits its Nelder-Mead
+    compares), ``general_nll`` on a CPU tensor."""
+    from crimp_tpu_torch.ops import toafit
+
+    if not toafit._on_card(x):
+        return general_nll(kind, pack(tpl, cfg, x.shape[0], None, x.device), x, mask, exposure, phis, u)
+    return _launch_eval(kind, tpl, x, mask, exposure, phis, cfg, u)
+
+
+def mirror_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, kernel: bool = False):
+    """The twin's Nelder-Mead over ``general_nll`` or, with ``kernel``, over
+    K6's own evaluation (``toafit_general_eval`` on the card): (LL (S, P),
+    vectors (S, P, D), trace), ``trace`` ``optimize.nelder_mead``'s
+    per-step records (decision codes as K6's, ``STEP_NAMES``). Over K6's
+    evaluation it is K6's Nelder-Mead step by step, so where K6 and the
+    twin part, the two traces show the step and the values compared there."""
+    trace: list = []
+    evaluate = None
+    if kernel:
+        def evaluate(u):
+            return _launch_eval(kind, tpl, x, mask, exposure, phis, cfg, u.contiguous())
+
+    ll, vec = general_profile_reference(kind, tpl, x, mask, exposure, phis, cfg, warm_vec, trace, evaluate)
+    return ll, vec, trace

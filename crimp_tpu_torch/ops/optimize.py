@@ -5,7 +5,8 @@ dimensions: every routine works on independent problems stacked along the
 leading axes and keeps each problem's arithmetic identical to a lone run.
 
 - ``golden_section``: 1-D bounded maximization (log-likelihood profiles);
-- ``nelder_mead``: fixed-iteration simplex minimization;
+- ``nelder_mead``: fixed-iteration simplex minimization, optionally
+  recording every step's sort, values and decision (K6's trace codes);
 - ``bounded_transform``: min/max <-> unbounded sigmoid reparameterization.
 """
 
@@ -41,13 +42,21 @@ def golden_section(fn, lo, hi, iters: int = 60, maximize: bool = True):
     return x_best, sign * torch.maximum(f1, f2)
 
 
-def nelder_mead(fn, x0: torch.Tensor, init_scale=0.1, iters: int = 200):
+def nelder_mead(fn, x0: torch.Tensor, init_scale=0.1, iters: int = 200, trace: list | None = None):
     """Fixed-iteration Nelder-Mead minimization of ``fn`` from ``x0``.
 
     ``x0`` is (..., n) for a batch of independent problems; ``fn`` maps
     points (..., m, n) to values (..., m) for any m. Branch-free: each step
     evaluates the reflect/expand/contract candidates and selects per problem,
-    with a conditional shrink. Returns (x_best (..., n), f_best (...)).
+    with a conditional shrink. The centroid is ``centroid``'s fixed order
+    (JAX's ``jnp.mean`` to rounding). The vertices' stable sort is the order
+    of K6's insertion sort (``csrc/toafit_general.cu``). ``trace``, a list,
+    gets one dict a step: ``order`` (..., n + 1) the sort, ``fvals`` the
+    sorted values, ``f_c`` (..., 4) the candidates' values, ``step`` (...)
+    the decision coded as K6's trace (0 expand, 1 reflect, 2 outside, 3
+    inside contraction, 4 shrink) and ``reads`` (...) the candidate values
+    the decision read (``candidate_reads``). Returns (x_best (..., n),
+    f_best (...)).
     """
     n = x0.shape[-1]
     eye = torch.eye(n, dtype=x0.dtype, device=x0.device)
@@ -57,25 +66,16 @@ def nelder_mead(fn, x0: torch.Tensor, init_scale=0.1, iters: int = 200):
         order = torch.argsort(fvals, dim=-1, stable=True)
         simplex = torch.gather(simplex, -2, order[..., None].expand_as(simplex))
         fvals = torch.gather(fvals, -1, order)
-        best_f, worst_f, second_worst_f = fvals[..., 0], fvals[..., -1], fvals[..., -2]
-        centroid = torch.mean(simplex[..., :-1, :], dim=-2)
-        direction = centroid - simplex[..., -1, :]
-
-        cands = torch.stack([
-            centroid + direction,        # reflect
-            centroid + 2.0 * direction,  # expand
-            centroid + 0.5 * direction,  # outside contraction
-            centroid - 0.5 * direction,  # inside contraction
-        ], dim=-2)
+        cands = _candidates(simplex)
         f_c = fn(cands)
         x_reflect, x_expand, x_out, x_in = cands.unbind(-2)
         f_reflect, f_expand, f_out, f_in = f_c.unbind(-1)
-
-        use_expand = (f_reflect < best_f) & (f_expand < f_reflect)
-        use_reflect = (~use_expand) & (f_reflect < second_worst_f)
-        use_out = (~use_expand) & (~use_reflect) & (f_reflect < worst_f) & (f_out <= f_reflect)
-        use_in = (~use_expand) & (~use_reflect) & (~use_out) & (f_in < worst_f)
-        shrink = ~(use_expand | use_reflect | use_out | use_in)
+        use_expand, use_reflect, use_out, use_in, shrink = _decide(fvals, f_c)
+        if trace is not None:
+            step = torch.where(use_expand, 0, torch.where(use_reflect, 1, torch.where(
+                use_out, 2, torch.where(use_in, 3, 4))))
+            trace.append({"order": order, "fvals": fvals, "f_c": f_c, "step": step,
+                          "reads": candidate_reads(fvals, f_c)})
 
         candidate = torch.where(
             use_expand[..., None], x_expand,
@@ -96,6 +96,50 @@ def nelder_mead(fn, x0: torch.Tensor, init_scale=0.1, iters: int = 200):
     i_best = torch.argmin(fvals, dim=-1, keepdim=True)
     x_best = torch.gather(simplex, -2, i_best[..., None].expand(*simplex.shape[:-2], 1, n))[..., 0, :]
     return x_best, torch.gather(fvals, -1, i_best)[..., 0]
+
+
+def centroid(simplex: torch.Tensor) -> torch.Tensor:
+    """Centroid of all vertices but the last of (..., n + 1, n) sorted
+    simplices, in a fixed order: ((v_0 + v_1) + ... + v_{n-1}) * (1 / n),
+    the same bits on every device and in K6."""
+    n = simplex.shape[-1]
+    total = simplex[..., 0, :]
+    for i in range(1, n):
+        total = total + simplex[..., i, :]
+    return total * (1.0 / n)
+
+
+def _candidates(simplex: torch.Tensor) -> torch.Tensor:
+    """(..., 4, n): reflect, expand, outside and inside contraction of the
+    worst (last) vertex of sorted simplices through their centroid."""
+    c = centroid(simplex)
+    direction = c - simplex[..., -1, :]
+    return torch.stack([c + direction, c + 2.0 * direction, c + 0.5 * direction, c - 0.5 * direction], dim=-2)
+
+
+def _decide(fvals: torch.Tensor, f_c: torch.Tensor):
+    """The decision tree on sorted values (..., n + 1) and the candidates'
+    (..., 4): (use_expand, use_reflect, use_out, use_in, shrink)."""
+    best_f, worst_f, second_worst_f = fvals[..., 0], fvals[..., -1], fvals[..., -2]
+    f_reflect, f_expand, f_out, f_in = f_c.unbind(-1)
+    use_expand = (f_reflect < best_f) & (f_expand < f_reflect)
+    use_reflect = (~use_expand) & (f_reflect < second_worst_f)
+    use_out = (~use_expand) & (~use_reflect) & (f_reflect < worst_f) & (f_out <= f_reflect)
+    use_in = (~use_expand) & (~use_reflect) & (~use_out) & (f_in < worst_f)
+    shrink = ~(use_expand | use_reflect | use_out | use_in)
+    return use_expand, use_reflect, use_out, use_in, shrink
+
+
+def candidate_reads(fvals: torch.Tensor, f_c: torch.Tensor) -> torch.Tensor:
+    """The candidate values ``_decide``'s tree reads, as a lazy Nelder-Mead
+    evaluates them: f_reflect; f_expand where f_reflect beats the best;
+    past the reflect, f_out where f_reflect beats the worst and f_in where
+    the outside contraction is not taken. (...) int64, 1 to 3."""
+    use_expand, use_reflect, use_out, _, _ = _decide(fvals, f_c)
+    past = ~(use_expand | use_reflect)
+    f_reflect = f_c[..., 0]
+    return (1 + (f_reflect < fvals[..., 0]).long() + (past & (f_reflect < fvals[..., -1])).long()
+            + (past & ~use_out).long())
 
 
 class bounded_transform:

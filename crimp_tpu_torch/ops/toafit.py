@@ -40,7 +40,13 @@ first step k* whose LL drop exceeds chi2_1(0.6827)/2; reported bound =
 
 The readvaryparam general path (``cfg.free_idx``) refits every flagged
 template parameter per phase by a fixed-iteration bounded Nelder-Mead,
-batched over (segment, phase), in torch ops on either device.
+batched over (segment, phase), through ``ops/general_sweep.py``: on a
+CUDA tensor one launch of K6 (``csrc/toafit_general.cu``) a profile, every
+(segment, phase) problem's whole Nelder-Mead (the brute grid in one launch,
+one a golden-section evaluation, one for the nuisance solve, one a pass of
+the error scan), ``general_sweep.LAUNCHES["general_sweep"]`` counting them;
+on a CPU tensor its twin ``general_profile_reference``. A free_idx fit
+launches no K5.
 
 ``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two contractions
 on bf16-rounded operands with f32 accumulation (in K5 on the card; in the
@@ -65,10 +71,9 @@ import torch
 
 from crimp_tpu_torch import obs, resilience
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES, ProfileParams
-from crimp_tpu_torch.models.profiles import extended_loglik
 from crimp_tpu_torch.obs import costmodel
-from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
-from crimp_tpu_torch.ops import reduce
+from crimp_tpu_torch.ops.optimize import golden_section
+from crimp_tpu_torch.ops import general_sweep, reduce
 from crimp_tpu_torch.utils import profiling
 from crimp_tpu_torch.utils.device import resolve_device
 
@@ -348,7 +353,8 @@ def norm_mode(cfg: ToAFitConfig) -> int:
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    """Whether a sweep on ``x`` launches K5 (a CUDA tensor) or runs the twin."""
+    """Whether a profile on ``x`` launches K5, or K6 with ``cfg.free_idx``
+    (a CUDA tensor), or runs the twin: the one device test of both."""
     return x.device.type == "cuda"
 
 
@@ -541,9 +547,12 @@ def profile_loglik_full(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, w
     exposure (S,); phis (S, P). The fixed-shape sweep is
     :func:`profile_sweep` (K5 on a card, one launch under span ``site``,
     reusing ``events``). With ``cfg.free_idx`` the general Nelder-Mead path
-    runs in torch ops; ``warm_vec`` (S, D) warm-starts it."""
+    is ``general_sweep.general_profile`` (K6 on a card, one launch under the
+    span ``site`` names with ``toa_general_`` for ``toa_sweep_``);
+    ``warm_vec`` (S, D) warm-starts it."""
     if cfg.free_idx:
-        ll, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+        ll, vecs = general_sweep.general_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec,
+                                                 site=general_site(site))
         return ll, vecs[..., 0], vecs[..., 1 + 3 * tpl.n_comp]
     return profile_sweep(kind, tpl, x.contiguous(), mask.contiguous(), exposure.contiguous(),
                          phis.contiguous(), cfg, site=site, events=events)
@@ -573,47 +582,19 @@ def _unflatten_tpl(vec: torch.Tensor, tpl: ProfileParams) -> ProfileParams:
     )
 
 
-def _general_profile_vecs(kind, tpl, x, mask, exposure, phis, cfg: ToAFitConfig, warm_vec=None):
-    """Profile LL over phShift with all flagged template parameters refit
-    per (segment, phase) by a fixed-iteration bounded Nelder-Mead; returns
-    (LL (S, P), refit flattened vectors (S, P, D)).
+def general_site(site: str) -> str:
+    """The K6 span of a K5 sweep's role: ``toa_sweep_brute`` ->
+    ``toa_general_brute``, ...; any other caller's ``toa_general_sweep``."""
+    return "toa_general_" + site[len("toa_sweep_"):] if site.startswith("toa_sweep_") else "toa_general_sweep"
 
-    ``warm_vec`` (S, D) starts each segment's simplices at a previous
-    best-fit vector (the error scan passes the optimum), as the
-    reference's sequential refits inherit lmfit state.
-    """
-    S, P = phis.shape
-    dev = x.device
-    free_idx = torch.as_tensor(cfg.free_idx, dtype=torch.long, device=dev)
-    tf = bounded_transform(cfg.free_lo, cfg.free_hi)
-    base = _flatten_tpl(tpl)
-    start = base.expand(S, -1) if warm_vec is None else warm_vec
-    u0 = tf.to_unbounded(start[:, free_idx])[:, None, :].expand(S, P, -1)
 
-    def vectors(u):
-        vec = base.expand(*u.shape[:-1], base.shape[0]).clone()
-        vec[..., free_idx] = tf.to_bounded(u)
-        return vec
-
-    xs, ms, ts = x[:, None, None, :], mask[:, None, None, :], exposure[:, None, None]
-
-    def nll(u):  # u (S, P, m, F) -> (S, P, m)
-        p = _unflatten_tpl(vectors(u), tpl).replace(ph_shift=phis[:, :, None])
-        return -extended_loglik(kind, p, xs, ts, ms)
-
-    u_best, f_best = nelder_mead(nll, u0, init_scale=0.25, iters=cfg.nm_iters)
-    return -f_best, vectors(u_best)
+# the readvaryparam profile's twin under the JAX package's name
+_general_profile_vecs = general_sweep.general_profile_reference
 
 
 # ---------------------------------------------------------------------------
 # Per-segment fit, batched over segments
 # ---------------------------------------------------------------------------
-
-
-def _flatten_tpl(tpl: ProfileParams) -> torch.Tensor:
-    """[norm, amp_1..K, loc_1..K, wid_1..K, ampShift] flattened vector (D,),
-    or (S, D) for per-row templates."""
-    return torch.cat([tpl.norm[..., None], tpl.amp, tpl.loc, tpl.wid, tpl.amp_shift[..., None]], dim=-1)
 
 
 def template_rows(tpl: ProfileParams, rows) -> ProfileParams:
@@ -819,8 +800,10 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     solve at its optimum (``golden_refine``; with ``refine_mode="grid"``
     each refine round and the nuisance solve), the dense error window and
     each pass of the error scan's fallback loop; ``brute_chunk`` matters
-    only to the twin, which a CPU tensor takes. The ``cfg.free_idx`` sweeps
-    are torch ops."""
+    only to the twin, which a CPU tensor takes. With ``cfg.free_idx`` each
+    profile is one K6 launch instead: the brute grid, each golden-section
+    evaluation (2 + 2 ``refine_iters``), the nuisance solve at the optimum,
+    the dense error window and each fallback pass."""
     if cfg.free_idx and tpl.norm.dim() > 0:
         raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
@@ -833,10 +816,10 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     brute_phis = torch.as_tensor(
         np.linspace(-half_range, half_range, cfg.n_brute), dtype=_F64, device=dev
     )
-    kernel_route = _on_card(x) and not cfg.free_idx
+    card = _on_card(x)
     # K5's phase-independent operands, once for every sweep of the fit
-    events = sweep_events(kind, tpl, x, cfg) if kernel_route else None
-    chunk = cfg.n_brute if kernel_route else max(1, min(cfg.brute_chunk, cfg.n_brute))
+    events = sweep_events(kind, tpl, x, cfg) if card and not cfg.free_idx else None
+    chunk = cfg.n_brute if card else max(1, min(cfg.brute_chunk, cfg.n_brute))
     pad = (-cfg.n_brute) % chunk
     phis_pad = torch.cat([brute_phis, brute_phis[-1:].expand(pad)]) if pad else brute_phis
     ll_brute = torch.cat([
@@ -874,7 +857,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
                                                          phi0 + grid_step, cfg, events)
     elif cfg.refine_mode == "golden":
         def ll_of(phi):
-            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None], cfg)[0][:, 0]
+            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None].contiguous(), cfg,
+                                  site="toa_sweep_refine")[0][:, 0]
 
         phi_best, ll_max = golden_section(
             ll_of, phi0 - grid_step, phi0 + grid_step, iters=cfg.refine_iters
@@ -888,7 +872,8 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     #    fixed-shape path); general mode also yields the full refit shape
     #    vector for the chi2 model
     if cfg.free_idx:
-        _, vecs = _general_profile_vecs(kind, tpl, x, mask, exposure, phi_best[:, None], cfg)
+        _, vecs = general_sweep.general_profile(kind, tpl, x, mask, exposure, phi_best[:, None].contiguous(), cfg,
+                                                site="toa_general_nuisance")
         vec_best = vecs[:, 0]
         a_best, b_best = vec_best[:, 0], vec_best[:, 1 + 3 * tpl.n_comp]
     else:
@@ -896,7 +881,7 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
             _, a_arr, b_arr = profile_loglik_full(kind, tpl, x, mask, exposure, phi_best[:, None], cfg,
                                                   site="toa_sweep_nuisance", events=events)
             a_best, b_best = a_arr[:, 0], b_arr[:, 0]
-        vec_best = _flatten_tpl(tpl).expand(S, -1).clone()
+        vec_best = general_sweep.flatten_template(tpl).expand(S, -1).clone()
         vec_best[:, 0] = a_best
         vec_best[:, 1 + 3 * tpl.n_comp] = b_best
 

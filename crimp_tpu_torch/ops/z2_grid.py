@@ -61,7 +61,8 @@ MAX_ROWS = 65535  # n_fddot * n_fdot, as the C entry point takes it
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"z2_grid": CSRC / "z2_grid.cu", "z2_general": CSRC / "z2_general.cu",
-           "deltafold": CSRC / "deltafold.cu", "toafit": CSRC / "toafit.cu"}
+           "deltafold": CSRC / "deltafold.cu", "toafit": CSRC / "toafit.cu",
+           "toafit_general": CSRC / "toafit_general.cu"}
 SOURCE = SOURCES["z2_grid"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

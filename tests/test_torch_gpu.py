@@ -36,7 +36,13 @@ launch, must be bitwise the chain of one-phase K5 sweeps under
 golden_section plus the sweep at the optimum for every family, norm solve
 and bf16 mode, with the shape term in shared memory and recomputed, a
 row alone its batch row, reruns bitwise; a refused launch must raise
-KernelError out of the fit, with no chain or twin run in its place. On two or more cards, the
+KernelError out of the fit, with no chain or twin run in its place. K6,
+the readvaryparam fit's bounded Nelder-Mead, must match its twin (LL rtol
+1e-12, vectors rtol 1e-10; expected bitwise) for every family cold and
+warm, through a shrinking case too, rerun bitwise, give a row alone its
+batch row's bits, take the decisions of the replay over its own
+evaluation, raise KernelError out of the fit when refused, and
+measure_toas -rv on cuda must agree with the cpu run. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
@@ -906,6 +912,172 @@ class TestGoldenRefine:
             toafit.fit_toas_batch("fourier", tpl, phases, masks, [70.0, 75.0, 80.0], cfg, device=cuda_device)
         # the brute grid ran; no chain of one-phase sweeps and no twin took the refine's place
         assert toafit.LAUNCHES == {"profile_sweep": 1, "golden_refine": 0}
+
+
+def _rv_operands(kind, dev, n_rows=3, n_max=1500, seed=50):
+    """(template, x, mask, exposure, phis (S, 8), cfg) for K6: a
+    two-component template with every parameter (and ampShift) free, ragged
+    rows of uniform phases in the family's cycle."""
+    rng = np.random.RandomState(seed)
+    t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))  # noqa: E731
+    if kind == "fourier":
+        tpl = profiles.ProfileParams(norm=t(10.0), amp=t([3.0, 1.2]), loc=t([0.2, -0.9]), wid=t([0.0, 0.0]),
+                                     ph_shift=t(0.0), amp_shift=t(1.0))
+        idx, lo, hi = (0, 1, 2, 3, 4, 7), (2.0, 0.1, 0.0, -np.pi, -np.pi, 0.2), (50.0, 8.0, 4.0, np.pi, np.pi, 5.0)
+    else:
+        tpl = profiles.ProfileParams(norm=t(2.0), amp=t([3.0, 1.0]), loc=t([1.2, 3.6]),
+                                     wid=t([0.5, 0.8] if kind == "vonmises" else [0.3, 0.5]), ph_shift=t(0.0),
+                                     amp_shift=t(1.0))
+        idx = (0, 1, 2, 3, 4, 5, 6, 7)
+        lo, hi = (0.4, 0.0, 0.0, 0.6, 3.0, 0.05, 0.05, 0.2), (10.0, 15.0, 5.0, 1.8, 4.2, 3.0, 3.0, 5.0)
+    cycle = 1.0 if kind == "fourier" else 2 * np.pi
+    counts = [n_max, n_max - 300, n_max - 700][:n_rows]
+    x = np.zeros((n_rows, n_max))
+    mask = np.zeros((n_rows, n_max), dtype=bool)
+    for r, n in enumerate(counts):
+        x[r, :n] = rng.uniform(0, cycle, n)
+        mask[r, :n] = True
+    exposure = np.array(counts, dtype=float) / 10.0
+    half = np.pi if kind == "fourier" else 1.5 * np.pi
+    phis = np.linspace(-half, half, 8)[None, :] + rng.uniform(-0.05, 0.05, (n_rows, 8))
+    cfg = toafit.ToAFitConfig(kind=kind, free_idx=idx, free_lo=lo, free_hi=hi, nm_iters=80)
+    as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return tpl.to(dev), as_dev(x), as_dev(mask), as_dev(exposure), as_dev(phis), cfg
+
+
+@pytest.mark.gpu
+class TestGeneralSweepKernel:
+    """K6, the readvaryparam fit's bounded Nelder-Mead, against its twin on
+    the card: general_nll's event sums are K6's fixed order and each of its
+    operations the one K6 takes, so the evaluation and the whole Nelder-Mead
+    are expected bit for bit (held to LL rtol 1e-12 and vectors rtol 1e-10
+    at the least); reruns bitwise; a row alone its batch row; the Nelder-Mead
+    replayed in K6's order over K6's own evaluation is K6's, step by step."""
+
+    @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_k6_matches_its_twin(self, cuda_device, kind, warm):
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands(kind, cuda_device)
+        warm_vec = None
+        if warm:
+            warm_vec = general_sweep.flatten_template(tpl).expand(3, -1).clone()
+            warm_vec[:, 0] *= 1.1
+        pk = general_sweep.pack(tpl, cfg, 3, warm_vec, cuda_device)
+        u = (pk["u0"][:, None, None, :] + 0.3 * torch.as_tensor(
+            np.random.RandomState(1).standard_normal((3, 8, 6, len(cfg.free_idx))), device=cuda_device)).contiguous()
+        f_k = general_sweep.general_eval(kind, tpl, x, mask, exposure, phis, cfg, u)
+        f_t = general_sweep.general_nll(kind, pk, x, mask, exposure, phis, u)
+        fin = torch.isfinite(f_t)
+        assert torch.equal(torch.isfinite(f_k), fin)
+        assert bool(torch.all(torch.abs(f_k[fin] - f_t[fin]) <= 1e-12 * torch.abs(f_t[fin])))
+        general_sweep.reset_launches()
+        ll, vec, shrinks, reads, steps = general_sweep._launch_nm(kind, tpl, x, mask, exposure, phis, cfg,
+                                                                  warm_vec, trace=True)
+        assert general_sweep.LAUNCHES["general_sweep"] == 1
+        ll_t, vec_t = general_sweep.general_profile_reference(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+        assert bool(torch.all(torch.abs(ll - ll_t) <= 1e-12 * torch.abs(ll_t)))
+        assert bool(torch.all(torch.abs(vec - vec_t) <= 1e-10 * torch.abs(vec_t)))
+        again = general_sweep.general_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec)
+        assert torch.equal(again[0], ll) and torch.equal(again[1], vec)
+        # the replay over K6's evaluation takes K6's decisions and ends on its bits
+        ll_r, vec_r, trace = general_sweep.mirror_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec,
+                                                          kernel=True)
+        assert torch.equal(ll_r, ll) and torch.equal(vec_r, vec)
+        assert torch.equal(torch.stack([t["step"] for t in trace], -1).reshape(steps.shape).to(torch.int8), steps)
+        assert torch.equal(shrinks, sum((t["step"] == 4).int() for t in trace))
+        # the candidate values K6's decisions read: what k6_counts charges
+        assert torch.equal(reads.long(), sum(t["reads"] for t in trace))
+        # a row alone, padded to its own length
+        n = int(mask[1].sum())
+        alone = general_sweep.general_profile(kind, tpl, x[1:2, :n].contiguous(), mask[1:2, :n].contiguous(),
+                                              exposure[1:2], phis[1:2].contiguous(), cfg,
+                                              None if warm_vec is None else warm_vec[1:2])
+        assert torch.equal(alone[0][0], ll[1]) and torch.equal(alone[1][0], vec[1])
+
+    def test_shrink_path(self, cuda_device):
+        """A one-harmonic template whose amplitude nearly reaches its norm (the
+        model touches zero): its Nelder-Mead shrinks, and K6 is the twin."""
+        from crimp_tpu_torch.ops import general_sweep
+
+        t = lambda v: torch.as_tensor(np.asarray(v, dtype=np.float64))  # noqa: E731
+        tpl = profiles.ProfileParams(norm=t(1.0), amp=t([0.99]), loc=t([0.2]), wid=t([0.0]), ph_shift=t(0.0),
+                                     amp_shift=t(1.0)).to(cuda_device)
+        x = torch.as_tensor(np.random.RandomState(41).uniform(0, 1, (3, 2000)), device=cuda_device)
+        mask = torch.ones(3, 2000, dtype=torch.bool, device=cuda_device)
+        exposure = torch.full((3,), 2000.0, dtype=torch.float64, device=cuda_device)
+        phis = torch.as_tensor(np.linspace(-3, 3, 8), device=cuda_device).expand(3, 8).contiguous()
+        cfg = toafit.ToAFitConfig(kind="fourier", free_idx=(0, 1, 2), free_lo=(0.2, 0.0, -np.pi),
+                                  free_hi=(5.0, 1000.0, np.pi), nm_iters=150)
+        ll, vec, shrinks, _, _ = general_sweep._launch_nm("fourier", tpl, x, mask, exposure, phis, cfg)
+        ll_t, vec_t = general_sweep.general_profile_reference("fourier", tpl, x, mask, exposure, phis, cfg)
+        assert int(shrinks.sum()) > 0
+        assert bool(torch.all(torch.abs(ll - ll_t) <= 1e-12 * torch.abs(ll_t)))
+        assert bool(torch.all(torch.abs(vec - vec_t) <= 1e-10 * torch.abs(vec_t)))
+
+    def test_refused_launch_raises(self, cuda_device, monkeypatch):
+        from crimp_tpu_torch.ops import general_sweep
+        from crimp_tpu_torch.resilience import KernelError
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands("fourier", cuda_device)
+        with pytest.raises(KernelError, match="contiguous"):
+            general_sweep.general_profile("fourier", tpl, x, mask, exposure, phis.float(), cfg)
+        lib = general_sweep._lib()
+
+        class Refusing:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def toafit_general_nm(*args):
+                return 801  # cudaErrorNotSupported
+
+        monkeypatch.setattr(general_sweep, "_LIB", Refusing())
+        general_sweep.reset_launches()
+        with pytest.raises(KernelError, match="toafit_general_nm"):
+            toafit.fit_toas_batch("fourier", tpl.to("cpu"), x.cpu().numpy(), mask.cpu().numpy(),
+                                  exposure.cpu().numpy(), cfg, device=cuda_device)
+        assert general_sweep.LAUNCHES["general_sweep"] == 0
+
+    def test_measure_toas_readvaryparam_cuda_vs_cpu(self, cuda_device, tmp_path):
+        """measure_toas -rv on two short windows of the bundled observation,
+        three template parameters flagged vary: cuda (K6) against cpu (the
+        twin), phShift within 1e-6 rad, LL/UL within one step."""
+        from crimp_tpu_torch.ops import general_sweep
+        from crimp_tpu_torch.pipelines.measure_toas import measure_toas
+
+        lines = (DATA / "1e2259_template.txt").read_text().splitlines()
+        keep = {"norm", "amp_2", "ph_2"}
+        tpl_path = tmp_path / "template_rv.txt"
+        tpl_path.write_text("\n".join(
+            ln.replace("vary True", "vary True" if (ln.split() or [""])[0] in keep else "vary False") for ln in lines) + "\n")
+        from crimp_tpu_torch.io.events import EventFile
+
+        t = EventFile(str(DATA / "1e2259_ni1020600110.fits")).build_time_energy_df().filtenergy(
+            1.0, 5.0).time_energy_df["TIME"]
+        out = ["ToA\tToA_tstart\tToA_tend\tToA_lenInt\tToA_exposure\tEvents\tct_rate"]
+        for i, (a, b) in enumerate(((0, 799), (800, 1599))):
+            t0, t1 = float(t[a]), float(t[b])
+            exposure = (t1 - t0) * 86400.0
+            out.append("\t".join([str(i), repr(t0), repr(t1), repr(t1 - t0), repr(exposure), "800",
+                                   repr(800 / exposure)]))
+        gti = tmp_path / "intervals_rv.txt"
+        gti.write_text("\n".join(out) + "\n")
+        res = {}
+        for dev in (cuda_device, "cpu"):
+            general_sweep.reset_launches()
+            res[str(dev)] = measure_toas(str(DATA / "1e2259_ni1020600110.fits"), str(DATA / "1e2259.par"),
+                                         str(tpl_path), str(gti), eneLow=1.0, eneHigh=5.0, phShiftRes=100,
+                                         readvaryparam=True, toaFile=str(tmp_path / f"ToAs_{dev}"),
+                                         timFile=str(tmp_path / f"ToAs_{dev}"), plotResiduals=False, device=dev)
+            assert (general_sweep.LAUNCHES["general_sweep"] > 0) == (str(dev) != "cpu")
+        g, c = res[str(cuda_device)], res["cpu"]
+        assert len(g["phShift"]) == 2
+        np.testing.assert_allclose(g["phShift"], c["phShift"], atol=1e-6, rtol=0)
+        step = 2 * np.pi / 100
+        for key in ("phShift_LL", "phShift_UL"):
+            assert np.max(np.abs(np.asarray(g[key]) - np.asarray(c[key]))) <= step * (1 + 1e-9)
 
 
 @pytest.mark.gpu
