@@ -31,8 +31,13 @@
 //            flattened vector [norm, amp_1..K, loc_1..K, wid_1..K, ampShift].
 // Per event and component, with the twin's own angle and rounding
 // (ops/general_sweep.py::general_nll, each operation one IEEE f64 operation,
-// libdevice cos, exp and log as torch calls them on the card):
-//   Fourier   term = (amp ampShift) cos(((j 2 pi) x + loc) - j phi)
+// libdevice cos, sin, exp and log as torch calls them on the card):
+//   Fourier   term = a_j C_j + b_j S_j, j = k + 1, with the event's harmonic
+//             pair (C_1, S_1) = (cos, sin)(2 pi x) and (C_j+1, S_j+1) =
+//             (C_j C_1 - S_j S_1, S_j C_1 + C_j S_1), and the vertex's
+//             a_j = (amp ampShift) cos(loc - j phi), b_j = -((amp ampShift)
+//             sin(loc - j phi)): (amp ampShift) cos((j 2 pi x + loc) - j phi)
+//             by angle addition, the angle never formed;
 //   von Mises term = ((amp ampShift) / (2 pi i0(kappa))) exp(kappa cos((x - cen) - phi)),
 //             kappa = 1 / (wid wid)
 //   Cauchy    term = (((amp ampShift) (1 / 2 pi)) sinh(wid)) / (cosh(wid) - cos((x - cen) - phi))
@@ -44,39 +49,58 @@
 // problems beside it, and reruns are bitwise.
 //
 // Entry points:
-//   toafit_general_nm    every (row, phase) problem's Nelder-Mead, one
-//                        512-thread block a problem on gridDim.x;
+//   toafit_general_nm    every (row, phase) problem's Nelder-Mead; a
+//                        512-thread block takes G (1, 2 or 4) consecutive
+//                        phases of one row side by side;
 //   toafit_general_eval  f at given unbounded points (row, phase, M vertices),
 //                        through the same evaluation body, so its values are
-//                        the bits the Nelder-Mead compares.
-//
-// Design, a simple kernel that is right first:
-//   - The simplex (at most 51 x 50 f64) stays in shared memory, addressed
-//     through an order array; thread 0 keeps the order by a stable insertion
-//     sort and takes the decisions, threads d < F do the centroid and the
-//     candidates a coordinate each.
-//   - One pass over the events evaluates up to four vertices: the four
-//     candidates of a step in one pass, with four sums and four minimums a
-//     thread. The F shrink vertices (the best one is unchanged) are evaluated
-//     only in the steps where the problem shrinks, four a pass; the
-//     branch-free twin evaluates all F + 1 every step and discards them, the
-//     same bits at 4 evaluations a step instead of F + 5.
-//   - Passes stop at the row's last masked event.
-//   - Per problem it reports the shrink steps and the candidate values the
-//     decision tree read (f_reflect; f_expand where f_reflect beats the best;
-//     past the reflect, f_out where f_reflect beats the worst and f_in where
-//     the outside contraction is not taken): the evaluations the data needs,
-//     which obs/costmodel.py::k6_counts charges, not the 4 a step K6 makes.
-//   - Optional trace: the decision of every step (0 expand, 1 reflect,
-//     2 outside, 3 inside contraction, 4 shrink), for locating the step where
-//     two runs part.
+//                        the bits the Nelder-Mead compares;
+//   toafit_general_max_group  the largest G whose simplices fit the
+//                        current card's shared memory at F free parameters.
 //
 // What bounds it on this card: f64 operations. Per (problem, evaluation,
 // masked event) an evaluation does 5K + 6 (Fourier) to 7K + 6 (von Mises)
 // operations counting a cos, exp, log or division as one
 // (obs/costmodel.py::k6_counts), against 9 bytes of input read once per
-// launch, far on the operations side of the ridge. The
-// libdevice cos is a few dozen f64 instructions, so the bound is not reached.
+// launch, far on the operations side of the ridge. A libdevice f64 cos or
+// log is a few dozen instructions, so the design spends them sparingly:
+//   - Evaluate only what the decisions read. A step evaluates the reflect;
+//     then exactly the value optimize._decide's tree reads next: the expand
+//     where f_r < best, nothing where f_r < second worst, else the outside
+//     contraction where f_r < worst, then the inside contraction where the
+//     outside one is not taken (the values optimize.candidate_reads
+//     counts). The F shrink vertices (the best keeps its value) are
+//     evaluated only in the steps that shrink, up to 4 a pass, as the F + 1
+//     starting vertices are. A value at a point does not depend on the pass
+//     that evaluates it, so this is the branch-free twin's Nelder-Mead bit
+//     for bit, at its reads (1.3-1.5 a step) where the twin evaluates F + 5.
+//   - A row's phases side by side. A block takes G problems of one row;
+//     warp g's lane 0 sorts and decides problem g, its lanes form its
+//     centroid and candidates, so the G problems' bookkeeping runs in
+//     parallel. Each pass walks the row's events (in walks of up to 4
+//     vertices) for every problem's next value(s): its reflect, its next
+//     candidate or up to 4 starting or shrink vertices. A problem whose step
+//     ended begins its next step in the next pass, without waiting for the
+//     others; the block ends when all G have made nm_iters steps. The
+//     simplices live in dynamic shared memory, (F + 5) (F + 1) doubles a
+//     problem. The event sums keep the one-problem order above, so G moves
+//     no bit.
+//   - The Fourier term without a cos in the event loop: one cos and one sin
+//     of 2 pi x an event and walk, shared by the walk's vertices, the
+//     harmonics by the recurrence (each operation an explicit __d*_rn, so
+//     nvcc contracts nothing the twin does not), and 2 products and 2 adds
+//     a (vertex, component) against the K cos (a, b) a vertex formed
+//     outside the loop. Von Mises and Cauchy keep their direct cos.
+//   - A thread takes U events a step (4 at one vertex a walk, 2 at two, 1
+//     at four), their chains side by side, so a walk of few vertices is not
+//     one long dependent chain an event; the terms are still added in event
+//     order. Each family has its own event loop (eval_walk's KIND), so the
+//     Fourier loop carries none of the others' registers. Passes stop at
+//     the row's last masked event.
+// Per problem it reports the shrink steps and the candidate values the
+// decision tree read, which obs/costmodel.py::k6_counts charges, and
+// optionally the decision of every step (0 expand, 1 reflect, 2 outside,
+// 3 inside contraction, 4 shrink).
 //
 // Plain C interface, loaded with ctypes (crimp_tpu_torch/ops/general_sweep.py).
 // The entry points launch on the caller's stream, allocate nothing and
@@ -92,7 +116,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_COMP = 16;                 // template components (harmonics)
 constexpr int MAX_DIM = 3 * MAX_COMP + 2;    // flattened vector length D
 constexpr int MAX_FREE = MAX_DIM;            // free parameters F
-constexpr int GROUP = 4;                     // vertices a pass over the events evaluates
+constexpr int POS_GROUP = 4;                 // starting or shrink vertices of a problem a pass
+constexpr int WALK = 4;                      // vertices one walk over the events evaluates
+constexpr int MAX_GROUP = 4;                 // problems a block (one a warp; 8 and 16 ran slower)
+constexpr int MAX_SLOTS = MAX_GROUP * POS_GROUP;  // vertices a pass at most
 constexpr double TWO_PI = 0x1.921fb54442d18p+2;      // 2 * math.pi
 constexpr double INV_TWO_PI = 0x1.45f306dc9c883p-3;  // 1.0 / (2 * math.pi)
 constexpr double INIT_SCALE = 0.25;          // the initial simplex's step (_general_profile_vecs)
@@ -100,6 +127,8 @@ constexpr unsigned FULL = 0xffffffffu;
 
 enum Kind { FOURIER = 0, VONMISES = 1, CAUCHY = 2 };
 enum Step { EXPAND = 0, REFLECT = 1, OUTSIDE = 2, INSIDE = 3, SHRINK = 4 };
+// a problem's stage: the value(s) its pass evaluates
+enum Stage { ST_START, ST_REFLECT, ST_EXPAND, ST_OUTSIDE, ST_INSIDE, ST_SHRINK, ST_DONE };
 
 struct Args {
   const double* x;            // (S, N) folded phases
@@ -114,25 +143,54 @@ struct Args {
   int n_phis, n_comp, kind, n_free;
 };
 
+// One problem's Nelder-Mead state; its simplex, values, order and
+// candidates are in dynamic shared memory (Simplex).
+struct Problem {
+  double phi;
+  double fr;                 // the step's reflect value
+  double fv[POS_GROUP];      // the pass's values: candidates 0-3 (reflect, expand, outside, inside) or positions
+  int stage, it, k0;         // k0: first position of a start or shrink pass
+  int n_pts, first;          // the pass evaluates cand[first .. first + n_pts)
+  int n_shrink, n_read, active;
+};
+
 struct Shared {
-  double simplex[MAX_FREE + 1][MAX_FREE];  // rows addressed through ord
-  double fvals[MAX_FREE + 1];
-  int ord[MAX_FREE + 1];                   // position -> simplex row, best first
-  double cand[GROUP][MAX_FREE];            // unbounded points of the pass
-  double vec[GROUP][MAX_DIM];              // their flattened vectors
-  double coef[GROUP][MAX_COMP];            // per component: amp ampShift (Fourier), the vM / Cauchy coefficient
-  double shp[GROUP][MAX_COMP];             // kappa (vM) or cosh(wid) (Cauchy)
-  double loc[GROUP][MAX_COMP];             // ph_k or cen_k
-  double norm[GROUP], nf[GROUP], expct[GROUP];
-  double cj[MAX_COMP], jphi[MAX_COMP];     // Fourier: j 2 pi and j phi
+  Problem prob[MAX_GROUP];
+  short slot_g[MAX_SLOTS];               // the pass's vertices: problem
+  short slot_j[MAX_SLOTS];               //   and candidate row
+  double vec[WALK][MAX_DIM];             // a walk's flattened vectors
+  double2 ab[WALK][MAX_COMP];            // Fourier (a, b); von Mises / Cauchy (coefficient, kappa or cosh(wid))
+  double loc[WALK][MAX_COMP];            // von Mises / Cauchy: cen_k
+  double norm[WALK], nf[WALK], expct[WALK], vphi[WALK];
   double lo[MAX_FREE], span[MAX_FREE];
   int fidx[MAX_FREE];
-  double red[2 * GROUP][WARPS];            // block reductions: warp partials
-  double fg[GROUP];                        // the pass's values
+  double red[2 * WALK][WARPS];           // block reductions: warp partials
   long long n_hi;
   double n_ev;
-  int shrink;
 };
+
+// A problem's arrays in dynamic shared memory.
+struct Simplex {
+  double* rows;   // (F + 1) x F, addressed through ord
+  double* fvals;  // F + 1
+  double* cand;   // 4 x F: the candidates, or the positions a pass evaluates
+  int* ord;       // F + 1: position -> row, best first
+};
+
+__host__ __device__ constexpr long long problem_doubles(int F) { return (F + 1LL) * F + (F + 1) + 4LL * F; }
+
+__host__ __device__ constexpr long long dyn_bytes(int G, int F) {
+  return G * problem_doubles(F) * 8 + G * (F + 1LL) * 4;
+}
+
+__device__ __forceinline__ Simplex simplex_of(double* dyn, int G, int F, int g) {
+  Simplex s;
+  s.rows = dyn + g * problem_doubles(F);
+  s.fvals = s.rows + (F + 1) * F;
+  s.cand = s.fvals + (F + 1);
+  s.ord = reinterpret_cast<int*>(dyn + G * problem_doubles(F)) + g * (F + 1);
+  return s;
+}
 
 // torch.maximum / torch.minimum: NaN propagates
 __device__ __forceinline__ double tmax(double a, double b) {
@@ -224,38 +282,35 @@ __device__ void row_extent(const Args& p, Shared& sh, long long r) {
   __syncthreads();
 }
 
-// The block's constants of a problem: the free set, the template vector in
-// every slot of vec (its free entries are overwritten per pass) and, for
-// Fourier, j 2 pi and j phi.
-__device__ void load_problem(const Args& p, Shared& sh, double phi) {
-  const int F = p.n_free, K = p.n_comp, D = 3 * K + 2;
+// The block's constants: the free set and the template vector in every
+// walk slot of vec (its free entries are overwritten per walk).
+__device__ void load_block(const Args& p, Shared& sh) {
+  const int F = p.n_free, D = 3 * p.n_comp + 2;
   for (int d = threadIdx.x; d < F; d += THREADS) {
     sh.fidx[d] = p.free_idx[d];
     sh.lo[d] = p.lo[d];
     sh.span[d] = p.span[d];
   }
-  for (int w = threadIdx.x; w < GROUP * D; w += THREADS) sh.vec[w / D][w % D] = p.base[w % D];
-  for (int k = threadIdx.x; k < K; k += THREADS) {
-    const double j = static_cast<double>(k + 1);
-    sh.cj[k] = __dmul_rn(j, TWO_PI);
-    sh.jphi[k] = __dmul_rn(j, phi);
-  }
+  for (int w = threadIdx.x; w < WALK * D; w += THREADS) sh.vec[w / D][w % D] = p.base[w % D];
   __syncthreads();
 }
 
-// f at the nv (<= GROUP) unbounded points in sh.cand, into sh.fg; run by
+// f at nv (<= V <= WALK) unbounded points of row r: vertex w's coordinate d
+// is point(w, d), its phase phase(w); its value goes to sink(w, f). Run by
 // every thread of the block, barrier-separated from what comes before and
 // after.
-__device__ void eval_group(const Args& p, Shared& sh, long long r, double phi, int nv) {
+template <int V, int KIND, class Point, class Phase, class Sink>
+__device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point point, Phase phase, Sink sink) {
   const int F = p.n_free, K = p.n_comp, D = 3 * K + 2;
   const int tid = threadIdx.x;
   // 1. the flattened vectors: lo + span * sigmoid(u), sigmoid as torch's
-  //    1 / (1 + exp(-u))
+  //    1 / (1 + exp(-u)); each vertex's phase
   for (int w = tid; w < nv * F; w += THREADS) {
     const int g = w / F, d = w % F;
-    const double sig = __ddiv_rn(1.0, __dadd_rn(1.0, exp(-sh.cand[g][d])));
+    const double sig = __ddiv_rn(1.0, __dadd_rn(1.0, exp(-point(g, d))));
     sh.vec[g][sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));
   }
+  for (int g = tid; g < nv; g += THREADS) sh.vphi[g] = phase(g);
   __syncthreads();
   // 2. per vertex and component
   for (int w = tid; w < nv * K; w += THREADS) {
@@ -263,16 +318,15 @@ __device__ void eval_group(const Args& p, Shared& sh, long long r, double phi, i
     const double* v = sh.vec[g];
     const double amp_sh = __dmul_rn(v[1 + k], v[D - 1]);
     const double wid = v[1 + 2 * K + k];
-    double coef = amp_sh, shape = 0.0;
-    if (p.kind == VONMISES) {
-      shape = __ddiv_rn(1.0, __dmul_rn(wid, wid));
-      coef = __ddiv_rn(amp_sh, __dmul_rn(TWO_PI, bessel_i0(shape)));
-    } else if (p.kind == CAUCHY) {
-      coef = __dmul_rn(__dmul_rn(amp_sh, INV_TWO_PI), sinh(wid));
-      shape = cosh(wid);
+    if (KIND == FOURIER) {
+      const double theta = __dsub_rn(v[1 + K + k], __dmul_rn(static_cast<double>(k + 1), sh.vphi[g]));
+      sh.ab[g][k] = make_double2(__dmul_rn(amp_sh, cos(theta)), -__dmul_rn(amp_sh, sin(theta)));
+    } else if (KIND == VONMISES) {
+      const double kappa = __ddiv_rn(1.0, __dmul_rn(wid, wid));
+      sh.ab[g][k] = make_double2(__ddiv_rn(amp_sh, __dmul_rn(TWO_PI, bessel_i0(kappa))), kappa);
+    } else {
+      sh.ab[g][k] = make_double2(__dmul_rn(__dmul_rn(amp_sh, INV_TWO_PI), sinh(wid)), cosh(wid));
     }
-    sh.coef[g][k] = coef;
-    sh.shp[g][k] = shape;
     sh.loc[g][k] = v[1 + K + k];
   }
   // 3. per vertex: the norm, the extended norm factor, the expected count
@@ -281,7 +335,7 @@ __device__ void eval_group(const Args& p, Shared& sh, long long r, double phi, i
     const double norm = v[0];
     const double T = p.exposure[r];
     double nf = norm, expct = __dmul_rn(norm, T);
-    if (p.kind != FOURIER) {
+    if (KIND != FOURIER) {
       double q = __dmul_rn(v[1], v[D - 1]);
       for (int k = 1; k < K; ++k) q = __dadd_rn(q, __dmul_rn(v[1 + k], v[D - 1]));
       nf = __dadd_rn(__dmul_rn(TWO_PI, norm), q);
@@ -293,237 +347,401 @@ __device__ void eval_group(const Args& p, Shared& sh, long long r, double phi, i
   }
   __syncthreads();
 
-  // 4. one pass over the events
+  // 4. one walk over the events, U events a step (1 at four vertices, 2 at
+  //    two, 4 at one): each thread's chains of U events side by side, their
+  //    terms added in event order
+  constexpr int U = V >= 4 ? 1 : 8 / (2 * V);
   const long long N = p.n_events, n_hi = sh.n_hi;
   const double* xr = p.x + r * N;
   const unsigned char* m = p.mask + r * N;
-  double lsum[GROUP], lmin[GROUP];
+  double lsum[V], lmin[V];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < V; ++g) {
     lsum[g] = 0.0;
     lmin[g] = CUDART_INF;
   }
-  for (long long i = tid; i < n_hi; i += THREADS) {
-    const double x = xr[i];
-    const bool on = m[i] != 0;
-    double tot[GROUP];
-    for (int k = 0; k < K; ++k) {
-      if (p.kind == FOURIER) {
-        const double cjx = __dmul_rn(sh.cj[k], x);
-        const double jp = sh.jphi[k];
+  for (long long i0 = tid; i0 < n_hi; i0 += static_cast<long long>(U) * THREADS) {
+    double x[U], tot[U][V];
+    bool on[U];
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
-          if (g < nv) {
-            const double term = __dmul_rn(sh.coef[g][k], cos(__dsub_rn(__dadd_rn(cjx, sh.loc[g][k]), jp)));
-            tot[g] = k == 0 ? term : __dadd_rn(tot[g], term);
+    for (int u = 0; u < U; ++u) {  // past the row's last masked event: a slot that adds nothing
+      const long long i = i0 + static_cast<long long>(u) * THREADS;
+      x[u] = i < n_hi ? xr[i] : 0.0;
+      on[u] = i < n_hi && m[i] != 0;
+    }
+    if (KIND == FOURIER) {
+      double c1[U], s1[U], c[U], s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const double ang = __dmul_rn(TWO_PI, x[u]);
+        c1[u] = cos(ang);
+        s1[u] = sin(ang);
+        c[u] = c1[u];
+        s[u] = s1[u];
+      }
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (k > 0) {
+            const double cn = __dsub_rn(__dmul_rn(c[u], c1[u]), __dmul_rn(s[u], s1[u]));
+            s[u] = __dadd_rn(__dmul_rn(s[u], c1[u]), __dmul_rn(c[u], s1[u]));
+            c[u] = cn;
+          }
+#pragma unroll
+          for (int g = 0; g < V; ++g) {
+            if (g < nv) {
+              const double2 ab = sh.ab[g][k];
+              const double term = __dadd_rn(__dmul_rn(ab.x, c[u]), __dmul_rn(ab.y, s[u]));
+              tot[u][g] = k == 0 ? term : __dadd_rn(tot[u][g], term);
+            }
           }
         }
-      } else {
+      }
+    } else {
+      for (int k = 0; k < K; ++k) {
 #pragma unroll
-        for (int g = 0; g < GROUP; ++g) {
-          if (g < nv) {
-            const double cd = cos(__dsub_rn(__dsub_rn(x, sh.loc[g][k]), phi));
-            const double term = p.kind == VONMISES
-                ? __dmul_rn(sh.coef[g][k], exp(__dmul_rn(sh.shp[g][k], cd)))
-                : __ddiv_rn(sh.coef[g][k], __dsub_rn(sh.shp[g][k], cd));
-            tot[g] = k == 0 ? term : __dadd_rn(tot[g], term);
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int g = 0; g < V; ++g) {
+            if (g < nv) {
+              const double2 cs = sh.ab[g][k];
+              const double cd = cos(__dsub_rn(__dsub_rn(x[u], sh.loc[g][k]), sh.vphi[g]));
+              const double term = KIND == VONMISES ? __dmul_rn(cs.x, exp(__dmul_rn(cs.y, cd)))
+                                                     : __ddiv_rn(cs.x, __dsub_rn(cs.y, cd));
+              tot[u][g] = k == 0 ? term : __dadd_rn(tot[u][g], term);
+            }
           }
         }
       }
     }
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      if (g < nv) {
-        const double nz = __ddiv_rn(__dadd_rn(sh.norm[g], tot[g]), sh.nf[g]);
-        const double lg = log(tmax(nz, 1e-300));
-        lsum[g] = __dadd_rn(lsum[g], on ? lg : 0.0);
-        lmin[g] = tmin(lmin[g], on ? nz : CUDART_INF);
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int g = 0; g < V; ++g) {
+        if (g < nv) {
+          const double nz = __ddiv_rn(__dadd_rn(sh.norm[g], tot[u][g]), sh.nf[g]);
+          const double lg = log(tmax(nz, 1e-300));
+          lsum[g] = __dadd_rn(lsum[g], on[u] ? lg : 0.0);
+          lmin[g] = tmin(lmin[g], on[u] ? nz : CUDART_INF);
+        }
       }
     }
   }
 
-  // 5. the block's sums and minimums in a fixed tree; thread 0 takes f
+  // 5. the block's sums and minimums in a fixed tree; warp 0 takes f
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) {
+  for (int g = 0; g < V; ++g) {
+    if (g < nv) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lsum[g] = __dadd_rn(lsum[g], __shfl_down_sync(FULL, lsum[g], off));
-      lmin[g] = tmin(lmin[g], __shfl_down_sync(FULL, lmin[g], off));
+      for (int off = 16; off > 0; off >>= 1) {
+        lsum[g] = __dadd_rn(lsum[g], __shfl_down_sync(FULL, lsum[g], off));
+        lmin[g] = tmin(lmin[g], __shfl_down_sync(FULL, lmin[g], off));
+      }
     }
   }
   if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
+    for (int g = 0; g < V; ++g) {
       sh.red[g][warp] = lsum[g];
-      sh.red[GROUP + g][warp] = lmin[g];
+      sh.red[WALK + g][warp] = lmin[g];
     }
   }
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      double s = lane < WARPS ? sh.red[g][lane] : 0.0;
-      double mn = lane < WARPS ? sh.red[GROUP + g][lane] : CUDART_INF;
+    for (int g = 0; g < V; ++g) {
+      if (g < nv) {
+        double s = lane < WARPS ? sh.red[g][lane] : 0.0;
+        double mn = lane < WARPS ? sh.red[WALK + g][lane] : CUDART_INF;
 #pragma unroll
-      for (int off = WARPS / 2; off > 0; off >>= 1) {
-        s = __dadd_rn(s, __shfl_down_sync(FULL, s, off));
-        mn = tmin(mn, __shfl_down_sync(FULL, mn, off));
-      }
-      if (lane == 0 && g < nv) {
-        const double e = sh.expct[g];
-        const double value = __dadd_rn(__dadd_rn(-e, __dmul_rn(sh.n_ev, log(e))), s);
-        sh.fg[g] = mn <= 0.0 ? CUDART_INF : -value;
+        for (int off = WARPS / 2; off > 0; off >>= 1) {
+          s = __dadd_rn(s, __shfl_down_sync(FULL, s, off));
+          mn = tmin(mn, __shfl_down_sync(FULL, mn, off));
+        }
+        if (lane == 0) {
+          const double e = sh.expct[g];
+          const double value = __dadd_rn(__dadd_rn(-e, __dmul_rn(sh.n_ev, log(e))), s);
+          sink(g, mn <= 0.0 ? CUDART_INF : -value);
+        }
       }
     }
   }
   __syncthreads();
 }
 
-// Copy positions [k0, k0 + nv) of the simplex (through ord) into sh.cand.
-__device__ __forceinline__ void stage_vertices(const Args& p, Shared& sh, int k0, int nv) {
-  const int F = p.n_free;
-  for (int w = threadIdx.x; w < nv * F; w += THREADS) sh.cand[w / F][w % F] = sh.simplex[sh.ord[k0 + w / F]][w % F];
-  __syncthreads();
-}
-
-__device__ __forceinline__ void store_values(Shared& sh, int k0, int nv) {
-  if (threadIdx.x == 0)
-    for (int g = 0; g < nv; ++g) sh.fvals[sh.ord[k0 + g]] = sh.fg[g];
-  __syncthreads();
-}
-
-// Evaluate positions [k_begin, F] of the simplex, GROUP a pass.
-__device__ void eval_positions(const Args& p, Shared& sh, long long r, double phi, int k_begin) {
-  for (int k0 = k_begin; k0 <= p.n_free; k0 += GROUP) {
-    const int nv = p.n_free + 1 - k0 < GROUP ? p.n_free + 1 - k0 : GROUP;
-    stage_vertices(p, sh, k0, nv);
-    eval_group(p, sh, r, phi, nv);
-    store_values(sh, k0, nv);
+// Evaluate n vertices in walks of up to WALK, each walk at the least
+// register block that holds it and with the family's own event loop:
+// vertex w's coordinate d is point(w, d).
+template <int KIND, class Point, class Phase, class Sink>
+__device__ void eval_family(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink) {
+  for (int w0 = 0; w0 < n; w0 += WALK) {
+    const int nv = n - w0 < WALK ? n - w0 : WALK;
+    auto pt = [&](int w, int d) { return point(w0 + w, d); };
+    auto ph = [&](int w) { return phase(w0 + w); };
+    auto sk = [&](int w, double f) { sink(w0 + w, f); };
+    if (nv > 2)
+      eval_walk<4, KIND>(p, sh, r, nv, pt, ph, sk);
+    else if (nv == 2)
+      eval_walk<2, KIND>(p, sh, r, nv, pt, ph, sk);
+    else
+      eval_walk<1, KIND>(p, sh, r, nv, pt, ph, sk);
   }
 }
 
-// One block a (row, phase) problem: the whole Nelder-Mead.
+template <class Point, class Phase, class Sink>
+__device__ void eval_vertices(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink) {
+  switch (p.kind) {
+    case FOURIER: eval_family<FOURIER>(p, sh, r, n, point, phase, sink); break;
+    case VONMISES: eval_family<VONMISES>(p, sh, r, n, point, phase, sink); break;
+    default: eval_family<CAUCHY>(p, sh, r, n, point, phase, sink); break;
+  }
+}
+
+// Problem g's next pass after its values came in, run by the 32 lanes of
+// warp g: lane 0 takes the decisions, the lanes the vectors.
+__device__ void advance(const Args& p, Problem& pr, const Simplex& sx, long long b, int iters, signed char* trace) {
+  enum { NONE, BEGIN, POSITIONS, REPLACE, SHRINK_SIMPLEX };
+  const int F = p.n_free, lane = threadIdx.x & 31;
+  int action = NONE, pick = 0;
+  if (lane == 0) {
+    const double best = sx.fvals[sx.ord[0]], worst = sx.fvals[sx.ord[F]];
+    const double second = sx.fvals[sx.ord[F > 0 ? F - 1 : 0]];
+    int step = -1, next = -1;
+    switch (pr.stage) {
+      case ST_START:
+      case ST_SHRINK:
+        for (int j = 0; j < pr.n_pts; ++j) sx.fvals[sx.ord[pr.k0 + j]] = pr.fv[j];
+        pr.k0 += pr.n_pts;
+        if (pr.k0 <= F) {
+          action = POSITIONS;
+        } else {
+          pr.it += pr.stage == ST_SHRINK;
+          action = BEGIN;
+        }
+        break;
+      case ST_REFLECT: {
+        const double fr = pr.fv[0];
+        pr.fr = fr;
+        ++pr.n_read;
+        if (fr < best) next = ST_EXPAND;
+        else if (fr < second) step = REFLECT;
+        else if (fr < worst) next = ST_OUTSIDE;
+        else next = ST_INSIDE;
+        break;
+      }
+      case ST_EXPAND: {
+        const double fr = pr.fr;
+        ++pr.n_read;
+        if (pr.fv[1] < fr) step = EXPAND;
+        else if (fr < second) step = REFLECT;
+        else if (fr < worst) next = ST_OUTSIDE;
+        else next = ST_INSIDE;
+        break;
+      }
+      case ST_OUTSIDE:
+        ++pr.n_read;
+        if (pr.fv[2] <= pr.fr) step = OUTSIDE;
+        else next = ST_INSIDE;
+        break;
+      case ST_INSIDE:
+        ++pr.n_read;
+        step = pr.fv[3] < worst ? INSIDE : SHRINK;
+        break;
+      default:
+        break;
+    }
+    if (next >= 0) {  // one more candidate value this step
+      pr.stage = next;
+      pr.first = next - ST_REFLECT;
+      pr.n_pts = 1;
+    } else if (step >= 0) {
+      if (trace != nullptr) trace[b * iters + pr.it] = static_cast<signed char>(step);
+      if (step == SHRINK) {
+        ++pr.n_shrink;
+        pr.stage = ST_SHRINK;
+        pr.k0 = 1;  // the best vertex keeps its value
+        action = SHRINK_SIMPLEX;
+      } else {
+        pick = step == EXPAND ? 1 : step == REFLECT ? 0 : step;
+        sx.fvals[sx.ord[F]] = pr.fv[pick];
+        ++pr.it;
+        action = REPLACE;
+      }
+    }
+  }
+  __syncwarp();
+  action = __shfl_sync(FULL, action, 0);
+  pick = __shfl_sync(FULL, pick, 0);
+  if (action == REPLACE) {
+    double* row = sx.rows + sx.ord[F] * F;
+    for (int d = lane; d < F; d += 32) row[d] = sx.cand[pick * F + d];
+    __syncwarp();
+    action = BEGIN;
+  } else if (action == SHRINK_SIMPLEX) {
+    for (int d = lane; d < F; d += 32) {
+      const double s0 = sx.rows[sx.ord[0] * F + d];
+      for (int k = 1; k <= F; ++k) {
+        double& v = sx.rows[sx.ord[k] * F + d];
+        v = __dadd_rn(s0, __dmul_rn(0.5, __dsub_rn(v, s0)));
+      }
+      sx.rows[sx.ord[0] * F + d] = __dadd_rn(s0, __dmul_rn(0.5, __dsub_rn(s0, s0)));
+    }
+    __syncwarp();
+    action = POSITIONS;
+  }
+  if (action == BEGIN) {
+    if (pr.it >= iters) {
+      __syncwarp();
+      if (lane == 0) {
+        pr.stage = ST_DONE;
+        pr.n_pts = 0;
+      }
+    } else {
+      if (lane == 0) {  // stable insertion sort of the positions by value
+        for (int k = 1; k <= F; ++k) {
+          const int row = sx.ord[k];
+          const double v = sx.fvals[row];
+          int j = k - 1;
+          while (j >= 0 && before(v, sx.fvals[sx.ord[j]])) {
+            sx.ord[j + 1] = sx.ord[j];
+            --j;
+          }
+          sx.ord[j + 1] = row;
+        }
+      }
+      __syncwarp();
+      const double inv_f = 1.0 / static_cast<double>(F);
+      for (int d = lane; d < F; d += 32) {
+        double c = sx.rows[sx.ord[0] * F + d];
+        for (int k = 1; k < F; ++k) c = __dadd_rn(c, sx.rows[sx.ord[k] * F + d]);
+        c = __dmul_rn(c, inv_f);
+        const double dir = __dsub_rn(c, sx.rows[sx.ord[F] * F + d]);
+        sx.cand[d] = __dadd_rn(c, dir);
+        sx.cand[F + d] = __dadd_rn(c, __dmul_rn(2.0, dir));
+        sx.cand[2 * F + d] = __dadd_rn(c, __dmul_rn(0.5, dir));
+        sx.cand[3 * F + d] = __dsub_rn(c, __dmul_rn(0.5, dir));
+      }
+      __syncwarp();
+      if (lane == 0) {
+        pr.stage = ST_REFLECT;
+        pr.first = 0;
+        pr.n_pts = 1;
+      }
+    }
+  } else if (action == POSITIONS) {
+    const int k0 = pr.k0;
+    const int n = F + 1 - k0 < POS_GROUP ? F + 1 - k0 : POS_GROUP;
+    for (int w = lane; w < n * F; w += 32) sx.cand[w] = sx.rows[sx.ord[k0 + w / F] * F + w % F];
+    __syncwarp();
+    if (lane == 0) {
+      pr.first = 0;
+      pr.n_pts = n;
+    }
+  }
+  __syncwarp();
+}
+
+// A block takes G consecutive phases of one row: every problem's whole
+// Nelder-Mead, side by side (see the design note).
+template <int G>
 __global__ void __launch_bounds__(THREADS, 1)
 nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out, int* shrinks, int* reads,
           signed char* trace) {
+  extern __shared__ __align__(16) double dyn[];
   __shared__ Shared sh;
-  const long long P = p.n_phis;
-  const long long b = blockIdx.x;
-  const long long r = b / P;
-  const double phi = p.phis[b];
-  const int F = p.n_free, tid = threadIdx.x;
-  const double inv_f = 1.0 / static_cast<double>(F);
-  load_problem(p, sh, phi);
+  const long long P = p.n_phis, n_grp = (P + G - 1) / G;
+  const long long r = blockIdx.x / n_grp, q0 = (blockIdx.x % n_grp) * G;
+  const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_block(p, sh);
   row_extent(p, sh, r);
-  for (int w = tid; w < (F + 1) * F; w += THREADS) {
-    const int k = w / F, d = w % F;
-    sh.simplex[k][d] = __dadd_rn(u0[r * F + d], k == d + 1 ? INIT_SCALE : 0.0);
+  if (warp < G) {  // warp g starts problem g: its simplex and its first positions
+    const long long q = q0 + warp;
+    Problem& pr = sh.prob[warp];
+    const Simplex sx = simplex_of(dyn, G, F, warp);
+    const bool act = q < P;
+    if (act) {
+      for (int w = lane; w < (F + 1) * F; w += 32) {
+        const int k = w / F, d = w % F;
+        sx.rows[k * F + d] = __dadd_rn(u0[r * F + d], k == d + 1 ? INIT_SCALE : 0.0);
+      }
+      for (int k = lane; k <= F; k += 32) sx.ord[k] = k;
+    }
+    __syncwarp();
+    const int n = F + 1 < POS_GROUP ? F + 1 : POS_GROUP;
+    if (act)
+      for (int w = lane; w < n * F; w += 32) sx.cand[w] = sx.rows[w];
+    if (lane == 0) {
+      pr.active = act;
+      pr.phi = act ? p.phis[r * P + q] : 0.0;
+      pr.stage = act ? ST_START : ST_DONE;
+      pr.it = pr.k0 = pr.first = pr.n_shrink = pr.n_read = 0;
+      pr.n_pts = act ? n : 0;
+    }
   }
-  if (tid <= F) sh.ord[tid] = tid;
   __syncthreads();
-  eval_positions(p, sh, r, phi, 0);
-  int n_shrink = 0, n_read = 0;  // n_read: thread 0's count
-  for (int it = 0; it < iters; ++it) {
-    if (tid == 0) {  // stable insertion sort of the positions by value
-      for (int k = 1; k <= F; ++k) {
-        const int row = sh.ord[k];
-        const double v = sh.fvals[row];
-        int j = k - 1;
-        while (j >= 0 && before(v, sh.fvals[sh.ord[j]])) {
-          sh.ord[j + 1] = sh.ord[j];
-          --j;
-        }
-        sh.ord[j + 1] = row;
-      }
+  for (;;) {
+    // the pass's vertices: problem g's at [sum of the n_pts before it, + its n_pts)
+    int total = 0, off = 0;
+    for (int g = 0; g < G; ++g) {
+      off += g < warp ? sh.prob[g].n_pts : 0;
+      total += sh.prob[g].n_pts;
+    }
+    if (warp < G && lane < sh.prob[warp].n_pts) {
+      sh.slot_g[off + lane] = static_cast<short>(warp);
+      sh.slot_j[off + lane] = static_cast<short>(sh.prob[warp].first + lane);
     }
     __syncthreads();
-    for (int d = tid; d < F; d += THREADS) {
-      double c = sh.simplex[sh.ord[0]][d];
-      for (int k = 1; k < F; ++k) c = __dadd_rn(c, sh.simplex[sh.ord[k]][d]);
-      c = __dmul_rn(c, inv_f);
-      const double dir = __dsub_rn(c, sh.simplex[sh.ord[F]][d]);
-      sh.cand[0][d] = __dadd_rn(c, dir);
-      sh.cand[1][d] = __dadd_rn(c, __dmul_rn(2.0, dir));
-      sh.cand[2][d] = __dadd_rn(c, __dmul_rn(0.5, dir));
-      sh.cand[3][d] = __dsub_rn(c, __dmul_rn(0.5, dir));
-    }
+    if (total == 0) break;
+    eval_vertices(
+        p, sh, r, total,
+        [&](int s, int d) { return simplex_of(dyn, G, F, sh.slot_g[s]).cand[sh.slot_j[s] * F + d]; },
+        [&](int s) { return sh.prob[sh.slot_g[s]].phi; },
+        [&](int s, double f) {
+          sh.prob[sh.slot_g[s]].fv[sh.slot_j[s]] = f;
+        });
+    if (warp < G && sh.prob[warp].stage != ST_DONE)
+      advance(p, sh.prob[warp], simplex_of(dyn, G, F, warp), r * P + q0 + warp, iters, trace);
     __syncthreads();
-    eval_group(p, sh, r, phi, GROUP);
-    if (tid == 0) {
-      const double best = sh.fvals[sh.ord[0]], worst = sh.fvals[sh.ord[F]];
-      const double second = sh.fvals[sh.ord[F > 0 ? F - 1 : 0]];
-      const double fr = sh.fg[0], fe = sh.fg[1], fo = sh.fg[2], fi = sh.fg[3];
-      const bool use_expand = (fr < best) && (fe < fr);
-      const bool use_reflect = !use_expand && (fr < second);
-      const bool use_out = !use_expand && !use_reflect && (fr < worst) && (fo <= fr);
-      const bool use_in = !use_expand && !use_reflect && !use_out && (fi < worst);
-      const int step = use_expand ? EXPAND : use_reflect ? REFLECT : use_out ? OUTSIDE : use_in ? INSIDE : SHRINK;
-      n_read += 1 + (fr < best);  // f_reflect, and f_expand where the reflect beats the best
-      if (!use_expand && !use_reflect) n_read += (fr < worst) + !use_out;  // f_out, then f_in
-      sh.shrink = step == SHRINK;
-      if (step != SHRINK) {
-        const int row = sh.ord[F];
-        for (int d = 0; d < F; ++d) sh.simplex[row][d] = sh.cand[step == EXPAND ? 1 : step == REFLECT ? 0 : step][d];
-        sh.fvals[row] = sh.fg[step == EXPAND ? 1 : step == REFLECT ? 0 : step];
-      }
-      if (trace != nullptr) trace[b * iters + it] = static_cast<signed char>(step);
-    }
-    __syncthreads();
-    if (sh.shrink) {
-      ++n_shrink;
-      for (int d = tid; d < F; d += THREADS) {
-        const double s0 = sh.simplex[sh.ord[0]][d];
-        for (int k = 1; k <= F; ++k) {
-          double& v = sh.simplex[sh.ord[k]][d];
-          v = __dadd_rn(s0, __dmul_rn(0.5, __dsub_rn(v, s0)));
-        }
-        sh.simplex[sh.ord[0]][d] = __dadd_rn(s0, __dmul_rn(0.5, __dsub_rn(s0, s0)));
-      }
-      __syncthreads();
-      eval_positions(p, sh, r, phi, 1);  // the best vertex keeps its value
-    }
   }
-  if (tid == 0) {  // torch.argmin: the first NaN, else the first least value
+  if (warp < G && sh.prob[warp].active) {
+    Problem& pr = sh.prob[warp];
+    const Simplex sx = simplex_of(dyn, G, F, warp);
+    const long long b = r * P + q0 + warp;
     int best = 0;
-    for (int k = 1; k <= F; ++k) {
-      const double v = sh.fvals[sh.ord[k]], cur = sh.fvals[sh.ord[best]];
-      if (cur == cur && (v != v || v < cur)) best = k;
+    if (lane == 0) {  // torch.argmin: the first NaN, else the first least value
+      for (int k = 1; k <= F; ++k) {
+        const double v = sx.fvals[sx.ord[k]], cur = sx.fvals[sx.ord[best]];
+        if (cur == cur && (v != v || v < cur)) best = k;
+      }
+      ll[b] = -sx.fvals[sx.ord[best]];
+      shrinks[b] = pr.n_shrink;
+      reads[b] = pr.n_read;
     }
-    sh.ord[0] = sh.ord[best];
-    ll[b] = -sh.fvals[sh.ord[best]];
-    shrinks[b] = n_shrink;
-    reads[b] = n_read;
-  }
-  __syncthreads();
-  const int D = 3 * p.n_comp + 2;
-  for (int d = tid; d < D; d += THREADS) vec_out[b * D + d] = p.base[d];
-  __syncthreads();
-  for (int d = tid; d < F; d += THREADS) {
-    const double sig = __ddiv_rn(1.0, __dadd_rn(1.0, exp(-sh.simplex[sh.ord[0]][d])));
-    vec_out[b * D + sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));
+    best = __shfl_sync(FULL, best, 0);
+    const int D = 3 * p.n_comp + 2;
+    for (int d = lane; d < D; d += 32) vec_out[b * D + d] = p.base[d];
+    __syncwarp();
+    const double* u = sx.rows + sx.ord[best] * F;
+    for (int d = lane; d < F; d += 32) {
+      const double sig = __ddiv_rn(1.0, __dadd_rn(1.0, exp(-u[d])));
+      vec_out[b * D + sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));
+    }
   }
 }
 
-// One block a (row, phase): f at its M given unbounded points, GROUP a pass.
+// One block a (row, phase): f at its M given unbounded points, WALK a walk.
 __global__ void __launch_bounds__(THREADS, 1) eval_kernel(const Args p, const double* u, int n_pts, double* f) {
   __shared__ Shared sh;
   const long long b = blockIdx.x;
   const long long r = b / p.n_phis;
   const double phi = p.phis[b];
   const int F = p.n_free;
-  load_problem(p, sh, phi);
+  load_block(p, sh);
   row_extent(p, sh, r);
-  for (int m0 = 0; m0 < n_pts; m0 += GROUP) {
-    const int nv = n_pts - m0 < GROUP ? n_pts - m0 : GROUP;
-    for (int w = threadIdx.x; w < nv * F; w += THREADS)
-      sh.cand[w / F][w % F] = u[(b * n_pts + m0 + w / F) * F + w % F];
-    __syncthreads();
-    eval_group(p, sh, r, phi, nv);
-    if (threadIdx.x == 0)
-      for (int g = 0; g < nv; ++g) f[b * n_pts + m0 + g] = sh.fg[g];
-    __syncthreads();
-  }
+  eval_vertices(
+      p, sh, r, n_pts, [&](int w, int d) { return u[(b * n_pts + w) * F + d]; }, [&](int) { return phi; },
+      [&](int w, double v) { f[b * n_pts + w] = v; });
 }
 
 bool bad_args(int n_rows, int n_phis, long long n_events, int n_comp, int kind, int n_free) {
@@ -532,25 +750,66 @@ bool bad_args(int n_rows, int n_phis, long long n_events, int n_comp, int kind, 
          static_cast<long long>(n_rows) * n_phis > 2147483647LL;
 }
 
+// The dynamic shared memory a block of G problems may take on the current card.
+long long smem_room() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  // the block's static shared memory: Shared and row_extent's partials
+  return static_cast<long long>(optin) - static_cast<long long>(sizeof(Shared) + 2 * WARPS * sizeof(long long));
+}
+
+template <int G>
+int launch_nm(const Args& args, const double* u0, int n_rows, int iters, double* ll, double* vec, int* shrinks,
+              int* reads, signed char* trace, cudaStream_t stream) {
+  const long long bytes = dyn_bytes(G, args.n_free);
+  const long long blocks = static_cast<long long>(n_rows) * ((args.n_phis + G - 1) / G);
+  if (bytes > smem_room() || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaFuncSetAttribute(nm_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  nm_kernel<G><<<static_cast<unsigned>(blocks), THREADS, static_cast<size_t>(bytes), stream>>>(
+      args, u0, iters, ll, vec, shrinks, reads, trace);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Every (row, phase) problem's bounded Nelder-Mead: ll (S, P), vec (S, P, D)
-// with D = 3 n_comp + 2, shrinks (S, P) the steps that shrank, reads (S, P)
-// the candidate values its decisions read over all steps; trace (S, P,
-// iters) the decision of every step, or null. kind: 0 Fourier, 1 von Mises,
-// 2 Cauchy. free_idx must hold distinct indices below D. Outputs may not
-// alias the inputs.
+// The largest G of 4, 2, 1 whose G simplices of n_free free
+// parameters fit the current card's shared memory beside the block's own
+// (0 when not even one does).
+extern "C" int toafit_general_max_group(int n_free) {
+  if (n_free < 1 || n_free > MAX_FREE) return 0;
+  const long long room = smem_room();
+  for (int g = MAX_GROUP; g >= 1; g /= 2)
+    if (dyn_bytes(g, n_free) <= room) return g;
+  return 0;
+}
+
+// Every (row, phase) problem's bounded Nelder-Mead, G = group phases of a
+// row a block: ll (S, P), vec (S, P, D) with D = 3 n_comp + 2, shrinks
+// (S, P) the steps that shrank, reads (S, P) the candidate values its
+// decisions read (each evaluated once) over all steps; trace (S, P, iters)
+// the decision of every step, or null. kind: 0 Fourier, 1 von Mises, 2
+// Cauchy. free_idx must hold distinct indices below D. group is 1, 2 or 4
+// and at most toafit_general_max_group(n_free); it moves no bit.
+// Outputs may not alias the inputs.
 extern "C" int toafit_general_nm(const double* x, const unsigned char* mask, const double* exposure,
                                  const double* phis, const double* base, const int* free_idx, const double* lo,
                                  const double* span, const double* u0, int n_rows, int n_phis, long long n_events,
-                                 int n_comp, int kind, int n_free, int iters, double* ll, double* vec, int* shrinks,
-                                 int* reads, signed char* trace, void* stream) {
+                                 int n_comp, int kind, int n_free, int iters, int group, double* ll, double* vec,
+                                 int* shrinks, int* reads, signed char* trace, void* stream) {
   if (bad_args(n_rows, n_phis, n_events, n_comp, kind, n_free) || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{x, mask, exposure, phis, base, free_idx, lo, span, n_events, n_phis, n_comp, kind, n_free};
-  nm_kernel<<<static_cast<unsigned>(n_rows * n_phis), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      args, u0, iters, ll, vec, shrinks, reads, trace);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 1: return launch_nm<1>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
+    case 2: return launch_nm<2>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
+    case 4: return launch_nm<4>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // f = -extended_loglik at n_pts unbounded points per (row, phase): u (S, P,

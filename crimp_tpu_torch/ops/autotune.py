@@ -56,7 +56,9 @@ the card and raise without one; they time the CPU twins only when asked for
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import os
 import pathlib
 import threading
 import time
@@ -152,6 +154,7 @@ def _load_cache(path: pathlib.Path | None = None) -> dict:
         # a torn or corrupt file is quarantined (renamed to *.corrupt), not
         # reparsed and refailed on every resolution
         resilience.quarantine_file(path, label="tuner_cache")
+        _forget_plans()
         return {}
     if not isinstance(doc, dict) or doc.get("version") != CACHE_VERSION:
         return {}
@@ -168,11 +171,68 @@ def _store_entry(key: str, entry: dict, path: pathlib.Path | None = None) -> Non
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_text(json.dumps({"version": CACHE_VERSION, "entries": entries}, indent=2) + "\n")
     tmp.rename(path)
+    _forget_plans()
 
 
 def _count_cache(hit: bool) -> None:
     """Verdict-cache effectiveness telemetry (no-op when obs is off)."""
+    counted = getattr(_COUNTED, "hits", None)
+    if counted is not None:
+        counted.append(hit)
     obs.counter_add("autotune_cache_hits" if hit else "autotune_cache_misses")
+
+
+# -- the card's plans, kept per shape ---------------------------------------------
+#
+# A resolution reads knobs, the verdict-cache file (a file-system call that
+# can take a fraction of a millisecond) and the card's occupancy before a
+# kernel can launch. On a card, a call of a shape resolved before takes the
+# plan it resolved and counts the verdict-cache hits and misses that
+# resolution counted. A kept plan holds while the knobs below and the
+# locations of the cache file are unchanged and no verdict was stored (or
+# quarantined) in this process; a verdict another process stores reaches
+# a new shape or a new process. Off the card, under an entries scope, with
+# a fault armed or in eager mode every call resolves.
+
+_PLAN_KNOBS = ("CRIMP_TORCH_AUTOTUNE", "CRIMP_TORCH_AUTOTUNE_CACHE", "CRIMP_TORCH_GRID_BLOCKS",
+               "CRIMP_TORCH_GRID_MXU", "CRIMP_TORCH_MXU_BF16")
+_PLANS: dict = {}
+_PLANS_KEEP = 256
+_PLANS_LOCK = threading.Lock()
+_COUNTED = threading.local()
+
+
+def _forget_plans() -> None:
+    with _PLANS_LOCK:
+        _PLANS.clear()
+
+
+def _kept(family: str, args: tuple, entries: dict | None, device, resolve):
+    """``resolve()``, or the plan kept for (family, args) on a card (see
+    the note above); the result is the caller's to change."""
+    import torch
+
+    dev = None if device is None else torch.device(device)
+    if (dev is None or dev.type != "cuda" or entries is not None or getattr(_SCOPE, "entries", None) is not None
+            or knobs.is_set("CRIMP_TORCH_FAULTS") or autotune_mode() == "eager"):
+        return resolve()
+    key = (family, args, str(dev), tuple(os.environ.get(k, "") for k in _PLAN_KNOBS + ("XDG_CACHE_HOME", "HOME")))
+    with _PLANS_LOCK:
+        hit = _PLANS.get(key)
+    if hit is not None:
+        for counted in hit[1]:
+            _count_cache(counted)
+        return copy.deepcopy(hit[0])
+    _COUNTED.hits = counted = []
+    try:
+        out = resolve()
+    finally:
+        _COUNTED.hits = None
+    with _PLANS_LOCK:
+        if len(_PLANS) >= _PLANS_KEEP:
+            _PLANS.clear()
+        _PLANS[key] = (copy.deepcopy(out), tuple(counted))
+    return out
 
 
 def _guarded(lookup, what: str):
@@ -345,6 +405,15 @@ def resolve_blocks(kernel: str, n_events: int, n_trials: int, poly: bool = False
         raise ValueError(f"unknown kernel variant {kernel!r}")
     if event_block is not None and trial_block is not None:
         return int(event_block), int(trial_block)
+    return _kept("blocks", (kernel, n_events, n_trials, bool(poly), event_block, trial_block, n_rows, nharm,
+                            str(trig_dtype)), entries, device,
+                 lambda: _resolve_blocks(kernel, n_events, n_trials, poly, event_block, trial_block, n_rows=n_rows,
+                                         nharm=nharm, trig_dtype=trig_dtype, device=device, entries=entries))
+
+
+def _resolve_blocks(kernel: str, n_events: int, n_trials: int, poly: bool, event_block: int | None,
+                    trial_block: int | None, *, n_rows: int, nharm: int, trig_dtype, device,
+                    entries: dict | None) -> tuple[int, int]:
     resolved = env_blocks_override(kernel)
     mode = autotune_mode()
     if resolved is None:
@@ -512,14 +581,18 @@ def resolve_grid_mxu(n_events: int, n_trials: int, poly: bool = False, entries: 
     CRIMP_TORCH_AUTOTUNE=0; the verdict of ``device``, None as in
     :func:`device_fingerprint`) > off, reseed 64; CRIMP_TORCH_MXU_BF16 is
     the operand-precision override."""
-    return _resolve_mxu(lambda: cached_grid_mxu(poly, n_events, n_trials, entries, device), "grid_mxu")
+    return _kept("grid_mxu", (n_events, n_trials, bool(poly)), entries, device,
+                 lambda: _resolve_mxu(lambda: cached_grid_mxu(poly, n_events, n_trials, entries, device),
+                                      "grid_mxu"))
 
 
 def resolve_grid3d_mxu(n_events: int, n_trials: int, poly: bool = False, entries: dict | None = None,
                        device=None) -> dict:
     """``resolve_grid_mxu`` for the cube, under its own cached verdict (the
     same CRIMP_TORCH_GRID_MXU override)."""
-    return _resolve_mxu(lambda: cached_grid3d_mxu(poly, n_events, n_trials, entries, device), "grid3d_mxu")
+    return _kept("grid3d_mxu", (n_events, n_trials, bool(poly)), entries, device,
+                 lambda: _resolve_mxu(lambda: cached_grid3d_mxu(poly, n_events, n_trials, entries, device),
+                                      "grid3d_mxu"))
 
 
 # -- delta-fold and delta-MCMC knobs ---------------------------------------------

@@ -8,27 +8,32 @@ JAX package fuses under ``fit_toas_batch``'s jit. ``general_profile`` is
 the entry point ``ops/toafit.py`` routes ``cfg.free_idx`` to:
 
 - on a CUDA tensor one launch of K6 (``csrc/toafit_general.cu``
-  ``toafit_general_nm``): a 512-thread block a (row, phase) problem runs
-  its whole Nelder-Mead with the simplex in shared memory and evaluates
-  four vertices a pass over the events, the shrink vertices only in the
-  steps that shrink, and reports per problem the shrink steps and the
-  candidate values its decisions read (what ``costmodel.k6_counts``
-  charges). ``LAUNCHES["general_sweep"]`` counts these launches.
-  Operands K6 cannot take raise ``KernelError``; nothing falls back;
+  ``toafit_general_nm``): a 512-thread block takes G consecutive phases of
+  one row (``group_for``) and runs their whole Nelder-Mead side by side,
+  the simplices in shared memory; each pass over the row's events
+  evaluates every problem's next value: its reflect, the one more
+  candidate its decision tree reads, or up to 4 starting or shrink
+  vertices. It reports per problem the shrink steps and the candidate
+  values its decisions read (what ``costmodel.k6_counts`` charges).
+  ``LAUNCHES["general_sweep"]`` counts these launches. Operands K6 cannot
+  take raise ``KernelError``; nothing falls back;
 - on a CPU tensor the plain twin ``general_profile_reference``: the
   branch-free ``optimize.nelder_mead`` over ``general_nll``.
 
 ``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
 m, N) temporaries: the template with the free entries set to
 ``lo + span * (1 / (1 + exp(-u)))``, the curve with each term in the
-order K6 takes it, and the event sums in K6's fixed order
-(``block_sum``), so a problem's value does not depend on the problems
-beside it. ``general_eval`` gives K6's values at given points (its
-``toafit_general_eval`` entry, ``LAUNCHES["general_eval"]``) or the twin's.
-``mirror_profile`` runs the twin's ``optimize.nelder_mead`` over either,
-with the decision of every step, to find the step where two runs part.
-Whether a tensor takes K6 is ``toafit._on_card``'s one test (imported at
-call time: ``ops/toafit.py`` imports this module).
+order K6 takes it (Fourier from the events' harmonic pairs,
+``harmonic_pairs``, and the vertices' (a, b), by angle addition), and the
+event sums in K6's fixed order (``block_sum``), so a problem's value does
+not depend on the problems beside it. ``general_eval`` gives K6's values
+at given points (its ``toafit_general_eval`` entry,
+``LAUNCHES["general_eval"]``) or the twin's. ``mirror_profile`` runs the
+twin's ``optimize.nelder_mead`` over either, with the decision of every
+step, to find the step where two runs part; ``pass_plan`` counts from
+such a trace the passes over the events a K6 block makes. Whether a tensor
+takes K6 is ``toafit._on_card``'s one test (imported at call time:
+``ops/toafit.py`` imports this module).
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ THREADS = 512  # csrc/toafit_general.cu THREADS: the event sums' fixed order
 WARP = 32
 MAX_COMP = 16  # csrc/toafit_general.cu MAX_COMP (and so at most 3 MAX_COMP + 2 free parameters)
 INIT_SCALE = 0.25  # the initial simplex's step (JAX's _general_profile_vecs)
+POS_GROUP = 4  # csrc/toafit_general.cu POS_GROUP: starting or shrink vertices of a problem a pass
+GROUPS = (1, 2, 4)  # the phases a K6 block may take side by side (csrc MAX_GROUP)
+GROUP = 4  # at the brute and dense grids: utils/k6_ab.py's fastest of 2, 4, 8 and 16
+TWO_PI = 2 * math.pi
 _KIND_CODE = {FOURIER: 0, VONMISES: 1, CAUCHY: 2}
 STEP_NAMES = ("expand", "reflect", "outside", "inside", "shrink")  # K6's trace codes
 INV_TWO_PI = 1.0 / (2 * math.pi)
@@ -143,23 +152,42 @@ def block_sum(v: torch.Tensor) -> torch.Tensor:
     return acc[..., 0]
 
 
+def harmonic_pairs(x: torch.Tensor, n_comp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, S), each (..., n_comp, N): (cos, sin)(j 2 pi x) of the events x
+    (..., N) for j = 1..n_comp as K6 forms them, one cos and one sin of
+    2 pi x, then C_j+1 = C_j C_1 - S_j S_1, S_j+1 = S_j C_1 + C_j S_1, each
+    operation rounded on its own."""
+    ang = TWO_PI * x
+    c1, s1 = torch.cos(ang), torch.sin(ang)
+    cs, ss = [c1], [s1]
+    for _ in range(1, n_comp):
+        c, s = cs[-1], ss[-1]
+        cs.append(c * c1 - s * s1)
+        ss.append(s * c1 + c * s1)
+    return torch.stack(cs, dim=-2), torch.stack(ss, dim=-2)
+
+
 def general_nll(kind: str, pk: dict, x, mask, exposure, phis, u) -> torch.Tensor:
     """-extended_loglik at unbounded points u (S, P, m, F) of the rows x,
     mask (S, N), exposure (S,) at phases phis (S, P) -> (S, P, m): the twin
-    of K6's evaluation (module docstring), each operation the one K6 takes."""
+    of K6's evaluation (module docstring), each operation the one K6 takes.
+    A Fourier term is a_j C_j + b_j S_j with the events' ``harmonic_pairs``
+    and a_j = (amp ampShift) cos(loc - j phi), b_j = -((amp ampShift)
+    sin(loc - j phi)): (amp ampShift) cos((j 2 pi x + loc) - j phi)."""
     vec = vectors(pk, u)
     K = (vec.shape[-1] - 2) // 3
     norm, amp_sh = vec[..., 0], vec[..., 1:1 + K] * vec[..., -1:]
     # every component at once over (S, P, m, K, N); the K terms then summed in order
-    xs, ph = x[:, None, None, None, :], phis[:, :, None, None, None]
-    loc = vec[..., 1 + K:1 + 2 * K, None]
     if kind == FOURIER:
-        j = torch.tensor([float(k + 1) for k in range(K)], dtype=x.dtype, device=x.device)
-        cj = torch.tensor([float(k + 1) * 2 * math.pi for k in range(K)], dtype=x.dtype, device=x.device)
-        terms = amp_sh[..., None] * torch.cos(cj[:, None] * xs + loc - j[:, None] * ph)
+        j = torch.arange(1, K + 1, dtype=x.dtype, device=x.device)
+        theta = vec[..., 1 + K:1 + 2 * K] - j * phis[:, :, None, None]
+        a, b = amp_sh * torch.cos(theta), -(amp_sh * torch.sin(theta))
+        c, s = harmonic_pairs(x, K)
+        terms = a[..., None] * c[:, None, None] + b[..., None] * s[:, None, None]
     else:
+        xs, ph = x[:, None, None, None, :], phis[:, :, None, None, None]
         wid = vec[..., 1 + 2 * K:1 + 3 * K]
-        cd = torch.cos(xs - loc - ph)
+        cd = torch.cos(xs - vec[..., 1 + K:1 + 2 * K, None] - ph)
         if kind == VONMISES:
             kappa = 1.0 / (wid * wid)
             coef = amp_sh / ((2 * math.pi) * torch.special.i0(kappa))
@@ -215,12 +243,41 @@ def _lib():
 
             lib = ctypes.CDLL(str(z2_grid.build()["toafit_general"]))
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.toafit_general_nm.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 6
+            lib.toafit_general_nm.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci, ci] + [vp] * 6
             lib.toafit_general_nm.restype = ci
+            lib.toafit_general_max_group.argtypes = [ci]
+            lib.toafit_general_max_group.restype = ci
             lib.toafit_general_eval.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 2
             lib.toafit_general_eval.restype = ci
             _LIB = lib
     return _LIB
+
+
+def group_for(n_phis: int, n_free: int, lib=None, preferred: int = GROUP) -> int:
+    """G, the phases of a row a K6 block takes side by side: ``preferred``
+    halved until it is at most ``n_phis`` and its G simplices of
+    ``n_free`` parameters fit the card's shared memory (``lib``'s
+    ``toafit_general_max_group``; K6's library when None). 1 at one phase."""
+    cap = (lib or _lib()).toafit_general_max_group(n_free)
+    g = preferred
+    while g > 1 and (g > n_phis or g > cap):
+        g //= 2
+    return g
+
+
+def pass_plan(trace: list, n_free: int, group: int) -> torch.Tensor:
+    """The passes over its row's events that each K6 block makes, (S,
+    ceil(P / group)), from ``optimize.nelder_mead``'s per-step ``trace`` of
+    (S, P) problems: a problem takes ceil((F + 1) / 4) passes for its
+    starting vertices, then each step one pass a candidate value its
+    decisions read and, when it shrinks, ceil(F / 4) more; it never waits
+    for the problems beside it, so its block makes as many passes as the
+    longest of its ``group`` problems (a ragged last group has fewer)."""
+    per = -(-(n_free + 1) // POS_GROUP) + sum(t["reads"] + (t["step"] == 4).long() * -(-n_free // POS_GROUP)
+                                             for t in trace)
+    S, P = per.shape
+    pad = torch.zeros((S, -P % group), dtype=per.dtype, device=per.device)
+    return torch.cat([per, pad], dim=1).reshape(S, -1, group).amax(dim=-1)
 
 
 def _operands(entry: str, kind, tpl, x, mask, exposure, phis, cfg, warm_vec) -> dict | None:
@@ -265,11 +322,13 @@ def _args(pk, x, mask, exposure, phis):
             pk["free_idx"].data_ptr(), pk["lo"].data_ptr(), pk["span"].data_ptr())
 
 
-def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bool = False):
-    """Check the operands and launch K6's Nelder-Mead once: (LL (S, P),
-    vectors (S, P, D), shrinks (S, P) int32, reads (S, P) int32 the
-    candidate values the decisions read, and the (S, P, nm_iters) int8
-    decisions with ``trace``, else None)."""
+def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bool = False,
+               group: int | None = None):
+    """Check the operands and launch K6's Nelder-Mead once, ``group``
+    phases a block (None: ``group_for``): (LL (S, P), vectors (S, P, D),
+    shrinks (S, P) int32, reads (S, P) int32 the candidate values the
+    decisions read, and the (S, P, nm_iters) int8 decisions with
+    ``trace``, else None)."""
     S, P = phis.shape
     D = 3 * tpl.n_comp + 2
     ll = torch.empty((S, P), dtype=_F64, device=x.device)
@@ -286,9 +345,13 @@ def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bo
 
     lib = _lib()
     with profiling.launch_window(x.device):
+        if group is None:
+            group = group_for(P, len(cfg.free_idx), lib)
+        if group not in GROUPS:
+            raise resilience.KernelError(f"general_sweep: K6 takes a group of {GROUPS} phases a block, got {group}")
         rc = lib.toafit_general_nm(*_args(pk, x, mask, exposure, phis), pk["u0"].data_ptr(), S, P,
                                    x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters,
-                                   ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
+                                   group, ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
                                    None if steps is None else steps.data_ptr(), z2_grid.stream_of(x))
     z2_grid.check_launch(rc, "toafit_general_nm")
     _count_launch("general_sweep")

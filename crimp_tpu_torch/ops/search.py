@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import numpy as np
 import torch
@@ -49,6 +50,7 @@ from crimp_tpu_torch import knobs, obs, resilience
 from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.ops import autotune, fasttrig, reduce, z2_general, z2_grid
 from crimp_tpu_torch.resilience import faultinject
+from crimp_tpu_torch.utils import profiling
 from crimp_tpu_torch.utils.device import resolve_device
 
 # The f32 inner sweep's error grows ~linearly in harmonic number; 20 is
@@ -232,11 +234,31 @@ def as_weights(weights, dev: torch.device):
     return torch.as_tensor(np.asarray(weights, dtype=np.float32).reshape(-1)).to(dev)
 
 
+# a card's row coefficients by their values: the kernels only read them, and
+# a repeated grid skips the host-to-card copy before its launch
+_ROWS: dict = {}
+_ROWS_KEEP = 64
+_ROWS_LOCK = threading.Lock()
+
+
 def row_coeffs(fdots, fddots, dev: torch.device):
-    """(0.5*fdot, fdd/6 or None) in f64, as the JAX kernels form them."""
-    half = as_f64(0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1), dev)
-    sixth = None if fddots is None else as_f64(np.asarray(fddots, dtype=np.float64).reshape(-1) / 6.0, dev)
-    return half, sixth
+    """(0.5*fdot, fdd/6 or None) in f64, as the JAX kernels form them; on a
+    card the same values give the same (read-only) tensors."""
+    half = 0.5 * np.asarray(fdots, dtype=np.float64).reshape(-1)
+    sixth = None if fddots is None else np.asarray(fddots, dtype=np.float64).reshape(-1) / 6.0
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return as_f64(half, dev), None if sixth is None else as_f64(sixth, dev)
+    key = (str(dev), half.tobytes(), None if sixth is None else sixth.tobytes())
+    with _ROWS_LOCK:
+        hit = _ROWS.get(key)
+    if hit is None:
+        hit = (as_f64(half, dev), None if sixth is None else as_f64(sixth, dev))
+        with _ROWS_LOCK:
+            if len(_ROWS) >= _ROWS_KEEP:
+                _ROWS.clear()
+            _ROWS[key] = hit
+    return hit
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +283,8 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
     None runs the 2-D instantiation (one fddot row of the output). The
     launch plan (``per_split``) resolves through ``autotune.resolve_blocks``
     under the family ``plan`` when not given; ``tile0`` offsets the grid by
-    whole trial tiles. The launch is the kernel span and cost row ``site``."""
+    whole trial tiles. The launch and the copy of its tiles into the f64
+    frequency layout are the kernel span of cost row ``site``."""
     half, sixth = row_coeffs(fdots, fddots, t.device)
     n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
     n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
@@ -272,10 +295,13 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
     with costmodel.kernel_span(site):
         cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, weights=w,
                                   poly=poly, per_split=per_split, tile0=tile0)
+        # the copy out of the tiles ends the span's device work
+        with profiling.launch_window(t.device) if t.device.type == "cuda" else contextlib.nullcontext():
+            sums = tiles_to_freqs(cs, n_freq)
     costmodel.capture(site, z2_grid.z2_tile_sums, t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth,
                       weights=w, poly=poly, per_split=per_split, tile0=tile0, out=cs,
                       counts=lambda: costmodel.k2_counts(t.shape[0], int(n_freq), n_rows, nharm, cs, weights=w))
-    return tiles_to_freqs(cs, n_freq)
+    return sums
 
 
 def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddots, nharm: int,

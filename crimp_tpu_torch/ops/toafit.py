@@ -588,10 +588,6 @@ def general_site(site: str) -> str:
     return "toa_general_" + site[len("toa_sweep_"):] if site.startswith("toa_sweep_") else "toa_general_sweep"
 
 
-# the readvaryparam profile's twin under the JAX package's name
-_general_profile_vecs = general_sweep.general_profile_reference
-
-
 # ---------------------------------------------------------------------------
 # Per-segment fit, batched over segments
 # ---------------------------------------------------------------------------

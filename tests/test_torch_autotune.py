@@ -456,3 +456,62 @@ class TestMxuBf16:
                                      device="cpu")
         np.testing.assert_array_equal(on["phShift"], want["phShift"].numpy())
         assert not np.array_equal(on["logLmax"], off["logLmax"])
+
+
+class TestKeptPlans:
+    """A card's plan kept per shape (``autotune._kept``): the resolution
+    runs once a shape, a repeat replays the cache counts it counted, and a
+    knob change, a stored verdict, an entries scope, an armed fault or a
+    CPU call resolve again. ``torch.device("cuda")`` names the card here
+    without one: the memo keys on the name, and the resolution is stubbed."""
+
+    def test_a_shape_resolves_once_and_replays_its_counts(self, monkeypatch, tmp_path):
+        from crimp_tpu_torch import obs
+
+        monkeypatch.setenv("CRIMP_TORCH_OBS", "1")
+        monkeypatch.setenv("CRIMP_TORCH_OBS_DIR", str(tmp_path / "obs"))
+        autotune._forget_plans()
+        calls = []
+
+        def resolve():
+            calls.append(1)
+            autotune._count_cache(False)
+            return {"plan": len(calls)}
+
+        card = torch.device("cuda")
+        with obs.run("kept"):
+            first = autotune._kept("t", (1, 2), None, card, resolve)
+            first["plan"] = 99  # the caller's copy
+            again = autotune._kept("t", (1, 2), None, card, resolve)
+            other = autotune._kept("t", (1, 3), None, card, resolve)
+        assert again == {"plan": 1} and other == {"plan": 2} and len(calls) == 2
+        with open(obs.last_manifest_path()) as fh:
+            assert json.load(fh)["counters"]["autotune_cache_misses"] == 3
+
+    @pytest.mark.parametrize("change", ["knob", "store", "scope", "fault", "cpu"])
+    def test_what_resolves_again(self, monkeypatch, change):
+        autotune._forget_plans()
+        calls = []
+
+        def resolve():
+            calls.append(1)
+            return len(calls)
+
+        card = torch.device("cuda")
+        assert autotune._kept("t", (7,), None, card, resolve) == 1
+        if change == "knob":
+            monkeypatch.setenv("CRIMP_TORCH_GRID_BLOCKS", "50176,256")
+            assert autotune._kept("t", (7,), None, card, resolve) == 2
+        elif change == "store":
+            autotune.store_grid_mxu(True, 10, 20, {"grid_mxu": 0, "reseed": 64, "mxu_bf16": 0})
+            assert autotune._kept("t", (7,), None, card, resolve) == 2
+        elif change == "scope":
+            with autotune.entries_scope({}):
+                assert autotune._kept("t", (7,), None, card, resolve) == 2
+        elif change == "fault":
+            monkeypatch.setenv("CRIMP_TORCH_FAULTS", "oom:harmonic_sums:9")
+            assert autotune._kept("t", (7,), None, card, resolve) == 2
+        else:
+            assert autotune._kept("t", (7,), None, torch.device("cpu"), resolve) == 2
+        # the kept plan again, or a new one kept; an armed fault keeps none
+        assert autotune._kept("t", (7,), None, card, resolve) == {"scope": 1, "cpu": 1, "fault": 3}.get(change, 2)

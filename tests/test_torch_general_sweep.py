@@ -461,7 +461,8 @@ class TestCInterface:
         monkeypatch.setattr(general_sweep, "_LIB", None)
         lib = general_sweep._lib()
         funcs = _c_functions(SRC.read_text())
-        assert set(lib.symbols) == set(funcs) == {"toafit_general_nm", "toafit_general_eval"}
+        assert set(lib.symbols) == set(funcs) == {"toafit_general_nm", "toafit_general_eval",
+                                                  "toafit_general_max_group"}
         for name, sym in lib.symbols.items():
             assert len(sym.argtypes) == funcs[name], name
 
@@ -469,7 +470,9 @@ class TestCInterface:
         src = SRC.read_text()
         consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
         assert int(consts["THREADS"]) == general_sweep.THREADS and int(consts["MAX_COMP"]) == general_sweep.MAX_COMP
-        assert int(consts["GROUP"]) == 4
+        assert int(consts["POS_GROUP"]) == general_sweep.POS_GROUP == 4
+        assert int(consts["MAX_GROUP"]) == max(general_sweep.GROUPS) <= general_sweep.THREADS // 32  # a warp a problem
+        assert general_sweep.GROUP in general_sweep.GROUPS
         assert re.search(r"enum Kind \{ FOURIER = 0, VONMISES = 1, CAUCHY = 2 \}", src)
         assert general_sweep._KIND_CODE == {profiles.FOURIER: 0, profiles.VONMISES: 1, profiles.CAUCHY: 2}
         steps = re.search(r"enum Step \{ EXPAND = 0, REFLECT = 1, OUTSIDE = 2, INSIDE = 3, SHRINK = 4 \}", src)

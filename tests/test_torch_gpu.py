@@ -38,10 +38,12 @@ and bf16 mode, with the shape term in shared memory and recomputed, a
 row alone its batch row, reruns bitwise; a refused launch must raise
 KernelError out of the fit, with no chain or twin run in its place. K6,
 the readvaryparam fit's bounded Nelder-Mead, must match its twin (LL rtol
-1e-12, vectors rtol 1e-10; expected bitwise) for every family cold and
-warm, through a shrinking case too, rerun bitwise, give a row alone its
-batch row's bits, take the decisions of the replay over its own
-evaluation, raise KernelError out of the fit when refused, and
+1e-12, vectors rtol 1e-10) for every family cold and warm, through a
+shrinking case too, and be its bits in LL, vectors, per-step decisions,
+shrink steps and candidate values read at 128, 64, 7 (a ragged last group
+of phases) and 1 phases, at every group size alike, rerun bitwise, give a
+row alone its batch row's bits, take the decisions of the replay over its
+own evaluation, raise KernelError out of the fit when refused, and
 measure_toas -rv on cuda must agree with the cpu run. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
@@ -995,6 +997,52 @@ class TestGeneralSweepKernel:
                                               exposure[1:2], phis[1:2].contiguous(), cfg,
                                               None if warm_vec is None else warm_vec[1:2])
         assert torch.equal(alone[0][0], ll[1]) and torch.equal(alone[1][0], vec[1])
+
+    @pytest.mark.parametrize("n_phis", [128, 64, 7, 1])
+    @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_k6_is_bitwise_its_twin(self, cuda_device, kind, warm, n_phis):
+        """K6 (G phases a block, general_sweep.group_for; 7 phases: a ragged
+        last group) against the twin's branch-free Nelder-Mead, bit for bit
+        in LL, vectors, the per-step decisions, the shrink steps and the
+        candidate values read; a row alone bitwise its batch row."""
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, _, cfg = _rv_operands(kind, cuda_device)
+        half = np.pi if kind == "fourier" else 1.5 * np.pi
+        rng = np.random.RandomState(n_phis)
+        phis = torch.as_tensor(np.linspace(-half, half, n_phis)[None, :] + rng.uniform(-0.05, 0.05, (3, n_phis)),
+                               device=cuda_device)
+        warm_vec = None
+        if warm:
+            warm_vec = general_sweep.flatten_template(tpl).expand(3, -1).clone()
+            warm_vec[:, 0] *= 1.1
+        got = general_sweep._launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec, trace=True)
+        trace = []
+        ll_t, vec_t = general_sweep.general_profile_reference(kind, tpl, x, mask, exposure, phis, cfg, warm_vec, trace)
+        ll, vec, shrinks, reads, steps = got
+        assert torch.equal(ll, ll_t) and torch.equal(vec, vec_t)
+        assert torch.equal(torch.stack([t["step"] for t in trace], -1).to(torch.int8), steps)
+        assert torch.equal(shrinks.long(), sum((t["step"] == 4).long() for t in trace))
+        assert torch.equal(reads.long(), sum(t["reads"] for t in trace))
+        n = int(mask[1].sum())
+        alone = general_sweep._launch_nm(kind, tpl, x[1:2, :n].contiguous(), mask[1:2, :n].contiguous(),
+                                         exposure[1:2], phis[1:2].contiguous(), cfg,
+                                         None if warm_vec is None else warm_vec[1:2], trace=True)
+        assert all(torch.equal(a[0], b[1]) for a, b in zip(alone, got))
+
+    def test_every_group_size_is_bitwise(self, cuda_device):
+        """The phases a block takes side by side move no bit: every G of
+        general_sweep.GROUPS (a ragged last group at 36 phases) gives the
+        default launch's bits."""
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, _, cfg = _rv_operands("fourier", cuda_device)
+        phis = torch.as_tensor(np.linspace(-np.pi, np.pi, 36), device=cuda_device).expand(3, 36).contiguous()
+        want = general_sweep._launch_nm("fourier", tpl, x, mask, exposure, phis, cfg, trace=True)
+        for g in general_sweep.GROUPS:
+            got = general_sweep._launch_nm("fourier", tpl, x, mask, exposure, phis, cfg, trace=True, group=g)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), g
 
     def test_shrink_path(self, cuda_device):
         """A one-harmonic template whose amplitude nearly reaches its norm (the

@@ -19,7 +19,7 @@ from crimp_tpu.ops import optimize as jax_optimize
 from crimp_tpu.ops import toafit as jax_toafit
 from crimp_tpu_torch.io import template as template_io
 from crimp_tpu_torch.models import profiles
-from crimp_tpu_torch.ops import optimize, toafit
+from crimp_tpu_torch.ops import general_sweep, optimize, toafit
 from tests.conftest import PAR, TEMPLATE
 
 torch.set_num_threads(2)
@@ -217,7 +217,7 @@ class TestReadVaryParam:
         warm = np.asarray(jax_toafit._flatten_tpl(jax_tpl)).copy()
         warm[:3] = [16.0, 1.3, 3.8]
         for i, w in ((0, None), (1, warm)):  # segment 0 cold, segment 1 warm-started
-            ll, vecs = toafit._general_profile_vecs(
+            ll, vecs = general_sweep.general_profile_reference(
                 kind, tpl, torch.as_tensor(x), torch.as_tensor(mask), torch.as_tensor(exposure),
                 torch.as_tensor(phis), cfg, None if w is None else torch.as_tensor(np.stack([w, w])))
             ll_ref, vecs_ref = jax_toafit._general_profile_vecs(
