@@ -52,6 +52,15 @@
 //   toafit_general_nm    every (row, phase) problem's Nelder-Mead; a
 //                        512-thread block takes G (1, 2 or 4) consecutive
 //                        phases of one row side by side;
+//   toafit_general_golden  the -rv fit's golden-section refine and the refit
+//                        vector at its optimum, one 512-thread block a row
+//                        whose rounds run their two golden points side by
+//                        side (G = 2) through nm_kernel's body (run_problems);
+//                        it replaces the 2 + 2 refine_iters one-phase
+//                        launches and the one at the optimum that
+//                        optimize.golden_section drove from the host
+//                        (crimp_tpu/ops/optimize.py:26-49 at
+//                        crimp_tpu/ops/toafit.py:640-660);
 //   toafit_general_eval  f at given unbounded points (row, phase, M vertices),
 //                        through the same evaluation body, so its values are
 //                        the bits the Nelder-Mead compares;
@@ -123,6 +132,7 @@ constexpr int MAX_SLOTS = MAX_GROUP * POS_GROUP;  // vertices a pass at most
 constexpr double TWO_PI = 0x1.921fb54442d18p+2;      // 2 * math.pi
 constexpr double INV_TWO_PI = 0x1.45f306dc9c883p-3;  // 1.0 / (2 * math.pi)
 constexpr double INIT_SCALE = 0.25;          // the initial simplex's step (_general_profile_vecs)
+constexpr double PHI = 0x1.3c6ef372fe950p-1;  // (5 ** 0.5 - 1) / 2, ops/optimize.py's PHI
 constexpr unsigned FULL = 0xffffffffu;
 
 enum Kind { FOURIER = 0, VONMISES = 1, CAUCHY = 2 };
@@ -167,6 +177,16 @@ struct Shared {
   double red[2 * WALK][WARPS];           // block reductions: warp partials
   long long n_hi;
   double n_ev;
+};
+
+// golden_kernel's own shared state, apart from Shared so that nm_kernel's
+// layout is not touched (fields added to Shared, first or last, slowed
+// nm_kernel by 0.1-0.3% at 84 x 128 on an H100, utils/k6_ab.py).
+struct GoldenShared {
+  double u0[MAX_FREE];  // the row's start
+  double x[2];          // the round's two golden points
+  double ll[2];         // their LLs
+  int best[2];          // and their problems' result positions
 };
 
 // A problem's arrays in dynamic shared memory.
@@ -642,28 +662,25 @@ __device__ void advance(const Args& p, Problem& pr, const Simplex& sx, long long
   __syncwarp();
 }
 
-// A block takes G consecutive phases of one row: every problem's whole
-// Nelder-Mead, side by side (see the design note).
-template <int G>
-__global__ void __launch_bounds__(THREADS, 1)
-nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out, int* shrinks, int* reads,
-          signed char* trace) {
-  extern __shared__ __align__(16) double dyn[];
-  __shared__ Shared sh;
-  const long long P = p.n_phis, n_grp = (P + G - 1) / G;
-  const long long r = blockIdx.x / n_grp, q0 = (blockIdx.x % n_grp) * G;
+// Problems g < n_act of row r side by side, problem g warp g's, at phase
+// phase(g) from the start start(d), d < F (see the design note): each one's
+// whole Nelder-Mead. Leaves each problem's simplex, values and order in dyn
+// and its counts in sh.prob; problem g's decisions go to trace row
+// trace_row(g). The three are functions evaluated where they are used, so
+// nm_kernel reads its phases and start from global memory as it always did.
+// Run by every thread of the block.
+template <int G, class PhaseOf, class Start, class TraceRow>
+__device__ __forceinline__ void run_problems(const Args& p, Shared& sh, double* dyn, long long r, int n_act, int iters,
+                                             signed char* trace, PhaseOf phase, Start start, TraceRow trace_row) {
   const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  load_block(p, sh);
-  row_extent(p, sh, r);
   if (warp < G) {  // warp g starts problem g: its simplex and its first positions
-    const long long q = q0 + warp;
     Problem& pr = sh.prob[warp];
     const Simplex sx = simplex_of(dyn, G, F, warp);
-    const bool act = q < P;
+    const bool act = warp < n_act;
     if (act) {
       for (int w = lane; w < (F + 1) * F; w += 32) {
         const int k = w / F, d = w % F;
-        sx.rows[k * F + d] = __dadd_rn(u0[r * F + d], k == d + 1 ? INIT_SCALE : 0.0);
+        sx.rows[k * F + d] = __dadd_rn(start(d), k == d + 1 ? INIT_SCALE : 0.0);
       }
       for (int k = lane; k <= F; k += 32) sx.ord[k] = k;
     }
@@ -673,7 +690,7 @@ nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out
       for (int w = lane; w < n * F; w += 32) sx.cand[w] = sx.rows[w];
     if (lane == 0) {
       pr.active = act;
-      pr.phi = act ? p.phis[r * P + q] : 0.0;
+      pr.phi = act ? phase(warp) : 0.0;
       pr.stage = act ? ST_START : ST_DONE;
       pr.it = pr.k0 = pr.first = pr.n_shrink = pr.n_read = 0;
       pr.n_pts = act ? n : 0;
@@ -701,9 +718,58 @@ nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out
           sh.prob[sh.slot_g[s]].fv[sh.slot_j[s]] = f;
         });
     if (warp < G && sh.prob[warp].stage != ST_DONE)
-      advance(p, sh.prob[warp], simplex_of(dyn, G, F, warp), r * P + q0 + warp, iters, trace);
+      advance(p, sh.prob[warp], simplex_of(dyn, G, F, warp), trace_row(warp), iters, trace);
     __syncthreads();
   }
+}
+
+// The position of a finished simplex's result, as torch.argmin over its
+// values by position: the first NaN, else the first least value
+// (golden_kernel's; nm_kernel writes the same out in place).
+__device__ __forceinline__ int best_position(const Simplex& sx, int F) {
+  int best = 0;
+  for (int k = 1; k <= F; ++k) {
+    const double v = sx.fvals[sx.ord[k]], cur = sx.fvals[sx.ord[best]];
+    if (cur == cur && (v != v || v < cur)) best = k;
+  }
+  return best;
+}
+
+// The flattened vector (D) of position ``best``, by the 32 lanes of a warp:
+// the template's, its free entries lo + span * sigmoid(u) (golden_kernel's;
+// nm_kernel writes the same out in place).
+__device__ __forceinline__ void write_vector(const Args& p, const Shared& sh, const Simplex& sx, int best,
+                                             double* out) {
+  const int F = p.n_free, D = 3 * p.n_comp + 2, lane = threadIdx.x & 31;
+  for (int d = lane; d < D; d += 32) out[d] = p.base[d];
+  __syncwarp();
+  const double* u = sx.rows + sx.ord[best] * F;
+  for (int d = lane; d < F; d += 32) {
+    const double sig = __ddiv_rn(1.0, __dadd_rn(1.0, exp(-u[d])));
+    out[sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));
+  }
+}
+
+// A block takes G consecutive phases of one row: every problem's whole
+// Nelder-Mead, side by side (see the design note).
+template <int G>
+__global__ void __launch_bounds__(THREADS, 1)
+nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out, int* shrinks, int* reads,
+          signed char* trace) {
+  extern __shared__ __align__(16) double dyn[];
+  __shared__ Shared sh;
+  const long long P = p.n_phis, n_grp = (P + G - 1) / G;
+  const long long r = blockIdx.x / n_grp, q0 = (blockIdx.x % n_grp) * G;
+  const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_act = P - q0 < G ? static_cast<int>(P - q0) : G;
+  load_block(p, sh);
+  row_extent(p, sh, r);
+  run_problems<G>(
+      p, sh, dyn, r, n_act, iters, trace, [&](int g) { return p.phis[r * P + q0 + g]; },
+      [&](int d) { return u0[r * F + d]; }, [&](int g) { return r * P + q0 + g; });
+  // best_position and write_vector, written out: through the helpers
+  // nm_kernel compiled to another spill (140 B at G 4) and ran 0.2% slower
+  // at 84 x 128 on an H100 (utils/k6_ab.py against the source before them)
   if (warp < G && sh.prob[warp].active) {
     Problem& pr = sh.prob[warp];
     const Simplex sx = simplex_of(dyn, G, F, warp);
@@ -728,6 +794,72 @@ nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out
       vec_out[b * D + sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));
     }
   }
+}
+
+// One block a row: optimize.golden_section's 1 + refine rounds on [lo, hi]
+// (maximizing the LL, f = 1.0 LL, which is the LL), each round's two points
+// (x1, x2) two problems side by side (G = 2), each started cold from the
+// row's u0 as a one-phase nm_kernel launch starts it, so each value is that
+// launch's LL bit for bit. Thread 0 keeps (a, b) and forms the next points
+// with golden_section's operations in its order; the block ends with
+// phi_best = f1 > f2 ? x1 : x2, ll_max = torch.maximum(f1, f2) and the
+// flattened vector of the problem that gave phi_best: the bits a one-phase
+// launch at phi_best gives. shrinks and reads sum the row's 2 + 2 refine
+// problems' counts.
+__global__ void __launch_bounds__(THREADS, 1)
+golden_kernel(const Args p, const double* lo, const double* hi, const double* u0, int iters, int refine,
+              double* phi_best, double* ll_max, double* vec_out, int* shrinks, int* reads) {
+  extern __shared__ __align__(16) double dyn[];
+  __shared__ Shared sh;
+  __shared__ GoldenShared gs;
+  const long long r = blockIdx.x;
+  const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_block(p, sh);
+  row_extent(p, sh, r);
+  for (int d = tid; d < F; d += THREADS) gs.u0[d] = u0[r * F + d];
+  double a = 0.0, b = 0.0;  // thread 0: the bracket
+  int n_shrink = 0, n_read = 0;
+  if (tid == 0) {
+    a = lo[r];
+    b = hi[r];
+    gs.x[0] = __dsub_rn(b, __dmul_rn(PHI, __dsub_rn(b, a)));
+    gs.x[1] = __dadd_rn(a, __dmul_rn(PHI, __dsub_rn(b, a)));
+  }
+  __syncthreads();
+  for (int round = 0;; ++round) {
+    run_problems<2>(
+        p, sh, dyn, r, 2, iters, nullptr, [&](int g) { return gs.x[g]; }, [&](int d) { return gs.u0[d]; },
+        [](int) { return 0LL; });
+    if (warp < 2 && lane == 0) {
+      const Simplex sx = simplex_of(dyn, 2, F, warp);
+      const int best = best_position(sx, F);
+      gs.best[warp] = best;
+      gs.ll[warp] = -sx.fvals[sx.ord[best]];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      n_shrink += sh.prob[0].n_shrink + sh.prob[1].n_shrink;
+      n_read += sh.prob[0].n_read + sh.prob[1].n_read;
+    }
+    if (round == refine) break;
+    if (tid == 0) {
+      const bool shrink_right = gs.ll[0] > gs.ll[1];  // keep [a, x2]
+      const double x1 = gs.x[0], x2 = gs.x[1];
+      a = shrink_right ? a : x1;
+      b = shrink_right ? x2 : b;
+      gs.x[0] = __dsub_rn(b, __dmul_rn(PHI, __dsub_rn(b, a)));
+      gs.x[1] = __dadd_rn(a, __dmul_rn(PHI, __dsub_rn(b, a)));
+    }
+    __syncthreads();
+  }
+  const int w = gs.ll[0] > gs.ll[1] ? 0 : 1;  // x_best = where(f1 > f2, x1, x2)
+  if (tid == 0) {
+    phi_best[r] = gs.x[w];
+    ll_max[r] = tmax(gs.ll[0], gs.ll[1]);
+    shrinks[r] = n_shrink;
+    reads[r] = n_read;
+  }
+  if (warp == w) write_vector(p, sh, simplex_of(dyn, 2, F, w), gs.best[w], vec_out + r * (3 * p.n_comp + 2));
 }
 
 // One block a (row, phase): f at its M given unbounded points, WALK a walk.
@@ -810,6 +942,34 @@ extern "C" int toafit_general_nm(const double* x, const unsigned char* mask, con
     case 4: return launch_nm<4>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The readvaryparam fit's golden-section refine of every row's profile on
+// [lo, hi] (each (S,)) and the refit vector at its optimum, one block a row
+// (golden_kernel): phi_best (S,), ll_max (S,), vec (S, D) with D = 3 n_comp
+// + 2, and shrinks (S,) and reads (S,), the shrink steps and the candidate
+// values read summed over a row's 2 + 2 refine_iters problems. Bitwise the
+// chain it replaces: optimize.golden_section over one-phase
+// toafit_general_nm launches (iters Nelder-Mead steps from u0 (S, F)), then
+// the launch at phi_best for its vector. Outputs may not alias the inputs.
+extern "C" int toafit_general_golden(const double* x, const unsigned char* mask, const double* exposure,
+                                     const double* lo_phi, const double* hi_phi, const double* base,
+                                     const int* free_idx, const double* lo, const double* span, const double* u0,
+                                     int n_rows, long long n_events, int n_comp, int kind, int n_free, int iters,
+                                     int refine_iters, double* phi_best, double* ll_max, double* vec, int* shrinks,
+                                     int* reads, void* stream) {
+  if (bad_args(n_rows, 2, n_events, n_comp, kind, n_free) || iters < 0 || refine_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args args{x, mask, exposure, nullptr, base, free_idx, lo, span, n_events, 2, n_comp, kind, n_free};
+  const long long bytes = dyn_bytes(2, n_free);
+  if (bytes > smem_room()) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaFuncSetAttribute(golden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(bytes));
+  if (set != cudaSuccess) return static_cast<int>(set);
+  golden_kernel<<<static_cast<unsigned>(n_rows), THREADS, static_cast<size_t>(bytes),
+                  static_cast<cudaStream_t>(stream)>>>(args, lo_phi, hi_phi, u0, iters, refine_iters, phi_best,
+                                                       ll_max, vec, shrinks, reads);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // f = -extended_loglik at n_pts unbounded points per (row, phase): u (S, P,

@@ -14,7 +14,8 @@ into achieved FLOP/s, bytes/s and a share of the card's roofline. XLA's
   one-phase sweeps it evaluates, :func:`k5_golden_counts`; held to the f64
   peak through the row's ``flops_dtype``), K6 the f64 operations of the
   readvaryparam Nelder-Mead's evaluations that the data's decisions need
-  (:func:`k6_counts`, the same peak); bytes count each input read once and each output written once;
+  (:func:`k6_counts`, the same peak; its golden-section refine, the
+  one-phase problems it runs, :func:`k6_golden_counts`); bytes count each input read once and each output written once;
 - **the tensors themselves** for ``argument_bytes`` and ``output_bytes``;
 - **``torch.utils.flop_counter.FlopCounterMode``** for torch code, by
   running the function once on ``meta`` tensors (no data, no card work);
@@ -375,6 +376,23 @@ def k6_counts(n_rows: int, n_phis: int, n_events: float, n_comp: int, kind: str,
         ops += S * float(n_events) * int(n_comp) * K6_FOURIER_EVENT_OPS
     nbytes = S * float(n_events) * 9 + S * 8 + S * P * 8 + S * n_free * 8 + 8 * D + S * P * (8 + 8 * D + 8)
     return {"flops": ops, "bytes_accessed": nbytes, "flops_dtype": "f64", "evaluations": evals}
+
+
+def k6_golden_counts(n_rows: int, n_events: float, n_comp: int, kind: str, n_free: int, refine_iters: int,
+                     n_reads: float, n_shrinks: float) -> dict:
+    """K6's golden-section refine over S = ``n_rows`` rows, one launch: the
+    evaluations of its 2 + 2 ``refine_iters`` one-phase problems a row, as
+    ``k6_counts`` counts a launch of S rows x that many phases, ``n_reads``
+    and ``n_shrinks`` the launch's sums over all of them; for Fourier the
+    j 2 pi x term once a (row, event, component), since it does not depend
+    on the phase. Bytes: the launch's own, each input read once (the phases
+    and mask of every event, exposure, the bracket, the starts, the
+    template) and phi_best, ll_max, the vectors and the two counts
+    written."""
+    counts = k6_counts(n_rows, 2 + 2 * int(refine_iters), n_events, n_comp, kind, n_free, n_reads, n_shrinks)
+    S, D = float(n_rows), 3 * int(n_comp) + 2
+    nbytes = S * float(n_events) * 9 + S * 8 + 2 * S * 8 + S * n_free * 8 + 8 * D + S * (8 + 8 + 8 * D + 4 + 4)
+    return {**counts, "bytes_accessed": nbytes}
 
 
 # -- disk tier (the autotune cache file, "cost|" keys) -----------------------------

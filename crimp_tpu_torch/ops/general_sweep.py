@@ -20,6 +20,16 @@ the entry point ``ops/toafit.py`` routes ``cfg.free_idx`` to:
 - on a CPU tensor the plain twin ``general_profile_reference``: the
   branch-free ``optimize.nelder_mead`` over ``general_nll``.
 
+``general_golden`` is the fit's golden-section refine with the refit
+vector at its optimum (JAX's ``golden_section`` at
+``crimp_tpu/ops/toafit.py:640-660``): on a CUDA tensor one launch of K6's
+``toafit_general_golden``, one 512-thread block a row whose rounds run
+their two golden points side by side (G 2) through the Nelder-Mead body
+``toafit_general_nm`` runs, ``LAUNCHES["general_golden"]``; on a CPU
+tensor ``general_golden_reference``, ``optimize.golden_section`` over
+one-phase twins and the twin at the optimum. Both give the bits of that
+chain.
+
 ``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
 m, N) temporaries: the template with the free entries set to
 ``lo + span * (1 / (1 + exp(-u)))``, the curve with each term in the
@@ -47,7 +57,7 @@ import torch
 from crimp_tpu_torch import resilience
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES
 from crimp_tpu_torch.obs import costmodel
-from crimp_tpu_torch.ops.optimize import bounded_transform, nelder_mead
+from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
 from crimp_tpu_torch.utils import profiling
 
 _F64 = torch.float64
@@ -64,7 +74,12 @@ _KIND_CODE = {FOURIER: 0, VONMISES: 1, CAUCHY: 2}
 STEP_NAMES = ("expand", "reflect", "outside", "inside", "shrink")  # K6's trace codes
 INV_TWO_PI = 1.0 / (2 * math.pi)
 
-LAUNCHES = {"general_sweep": 0, "general_eval": 0}
+LAUNCHES = {"general_sweep": 0, "general_eval": 0, "general_golden": 0}
+
+# toafit_general_golden: x, mask, exposure, lo, hi, base, free_idx, box lo, span, u0; n_rows, n_events,
+# n_comp, kind, n_free, nm_iters, refine_iters; phi_best, ll_max, vec, shrinks, reads, stream
+GOLDEN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 6)
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -249,6 +264,8 @@ def _lib():
             lib.toafit_general_max_group.restype = ci
             lib.toafit_general_eval.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 2
             lib.toafit_general_eval.restype = ci
+            lib.toafit_general_golden.argtypes = GOLDEN_ARGTYPES
+            lib.toafit_general_golden.restype = ci
             _LIB = lib
     return _LIB
 
@@ -382,6 +399,43 @@ def _launch_eval(kind, tpl, x, mask, exposure, phis, cfg, u):
     return f
 
 
+def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None):
+    """Check the operands and launch K6's golden-section refine once (``lib``
+    a K6 library, K6's own when None): (phi_best (S,), ll_max (S,), refit
+    vectors (S, D), shrinks (S,) int32 and reads (S,) int32, each summed
+    over a row's 2 + 2 ``cfg.refine_iters`` problems)."""
+    S = x.shape[0]
+    D = 3 * tpl.n_comp + 2
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t.dtype != _F64 or t.dim() != 1 or t.shape[0] != S or not t.is_contiguous() or t.device != x.device:
+            raise resilience.KernelError(f"general_golden: K6 takes {name} as a contiguous ({S},) f64 tensor on x's "
+                                         f"device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if cfg.nm_iters < 0 or cfg.refine_iters < 0:
+        raise resilience.KernelError(f"general_golden: K6 takes nm_iters and refine_iters >= 0, got "
+                                     f"{cfg.nm_iters} and {cfg.refine_iters}")
+    phi, ll = (torch.empty(S, dtype=_F64, device=x.device) for _ in range(2))
+    vec = torch.empty((S, D), dtype=_F64, device=x.device)
+    shrinks, reads = (torch.zeros(S, dtype=torch.int32, device=x.device) for _ in range(2))
+    pk = _operands("general_golden", kind, tpl, x, mask, exposure, lo[:, None], cfg, None)
+    if pk is None:
+        return phi, ll, vec, shrinks, reads
+    from crimp_tpu_torch.ops import z2_grid
+
+    lib = lib or _lib()
+    with profiling.launch_window(x.device):
+        if lib.toafit_general_max_group(len(cfg.free_idx)) < 2:
+            raise resilience.KernelError(f"general_golden: two simplices of {len(cfg.free_idx)} free parameters do "
+                                         "not fit the card's shared memory")
+        rc = lib.toafit_general_golden(
+            x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), lo.data_ptr(), hi.data_ptr(), pk["base"].data_ptr(),
+            pk["free_idx"].data_ptr(), pk["lo"].data_ptr(), pk["span"].data_ptr(), pk["u0"].data_ptr(), S,
+            x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters, cfg.refine_iters,
+            phi.data_ptr(), ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(), z2_grid.stream_of(x))
+    z2_grid.check_launch(rc, "toafit_general_golden")
+    _count_launch("general_golden")
+    return phi, ll, vec, shrinks, reads
+
+
 # ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
@@ -404,6 +458,47 @@ def general_profile(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, site
                           x.shape[0], phis.shape[1], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind,
                           len(cfg.free_idx), float(reads.sum()), float(shrinks.sum())))
     return ll, vec
+
+
+def general_golden_reference(kind, tpl, x, mask, exposure, lo, hi, cfg, sweep=None):
+    """Plain version of K6's golden-section refine: ``optimize.golden_section``
+    over one-phase profiles of every row on [lo, hi] (``cfg.refine_iters``
+    iterations), then the profile at the optimum for its refit vector.
+    Returns (phi_best (S,), ll_max (S,), vectors (S, D)). ``sweep`` is the
+    profile it chains, the twin ``general_profile_reference`` by default
+    (``general_profile`` makes it the chain of one-phase K6 launches that a
+    card fit ran before the refine was one launch)."""
+    sweep = general_profile_reference if sweep is None else sweep
+
+    def at(phi):
+        return sweep(kind, tpl, x, mask, exposure, phi[:, None].contiguous(), cfg)
+
+    phi_best, ll_max = golden_section(lambda phi: at(phi)[0][:, 0], lo, hi, iters=cfg.refine_iters)
+    return phi_best, ll_max, at(phi_best)[1][:, 0]
+
+
+def general_golden(kind, tpl, x, mask, exposure, lo, hi, cfg):
+    """The readvaryparam fit's golden-section refine of every row's profile
+    on [lo, hi] (each (S,)) and the refit flattened vector at the optimum:
+    (phi_best (S,), ll_max (S,), vectors (S, D)). On a CUDA tensor one K6
+    launch (``toafit_general_golden``, span and cost row
+    ``toa_general_refine``), bitwise the chain of one-phase K6 launches under
+    ``golden_section`` and the launch at the optimum; operands K6 cannot
+    take raise ``KernelError`` (nothing falls back). On a CPU tensor
+    ``general_golden_reference``."""
+    from crimp_tpu_torch.ops import toafit
+
+    if not toafit._on_card(x):
+        return general_golden_reference(kind, tpl, x, mask, exposure, lo, hi, cfg)
+    args = (x.contiguous(), mask.contiguous(), exposure.contiguous())
+    site = toafit.general_site("toa_sweep_refine")
+    with costmodel.kernel_span(site):
+        phi, ll, vec, shrinks, reads = _launch_golden(kind, tpl, *args, lo.contiguous(), hi.contiguous(), cfg)
+    costmodel.capture(site, None, kind, *args, lo, hi, cfg, out=[phi, ll, vec],
+                      counts=lambda: costmodel.k6_golden_counts(
+                          x.shape[0], float(mask.sum()) / max(x.shape[0], 1), tpl.n_comp, kind, len(cfg.free_idx),
+                          cfg.refine_iters, float(reads.sum()), float(shrinks.sum())))
+    return phi, ll, vec
 
 
 def general_eval(kind, tpl, x, mask, exposure, phis, cfg, u):

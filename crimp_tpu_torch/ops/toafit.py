@@ -43,10 +43,13 @@ template parameter per phase by a fixed-iteration bounded Nelder-Mead,
 batched over (segment, phase), through ``ops/general_sweep.py``: on a
 CUDA tensor one launch of K6 (``csrc/toafit_general.cu``) a profile, every
 (segment, phase) problem's whole Nelder-Mead (the brute grid in one launch,
-one a golden-section evaluation, one for the nuisance solve, one a pass of
-the error scan), ``general_sweep.LAUNCHES["general_sweep"]`` counting them;
-on a CPU tensor its twin ``general_profile_reference``. A free_idx fit
-launches no K5.
+the dense window in one, one a pass of the error scan),
+``general_sweep.LAUNCHES["general_sweep"]`` counting them, and the whole
+golden-section refine with the refit vector at its optimum in one launch of
+K6's ``toafit_general_golden`` (``general_sweep.general_golden``,
+``LAUNCHES["general_golden"]``), bitwise the chain of one-phase launches
+it replaces; on a CPU tensor the twins ``general_profile_reference`` and
+``general_golden_reference``. A free_idx fit launches no K5.
 
 ``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two contractions
 on bf16-rounded operands with f32 accumulation (in K5 on the card; in the
@@ -797,9 +800,11 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     each refine round and the nuisance solve), the dense error window and
     each pass of the error scan's fallback loop; ``brute_chunk`` matters
     only to the twin, which a CPU tensor takes. With ``cfg.free_idx`` each
-    profile is one K6 launch instead: the brute grid, each golden-section
-    evaluation (2 + 2 ``refine_iters``), the nuisance solve at the optimum,
-    the dense error window and each fallback pass."""
+    profile is one K6 launch instead: the brute grid, the whole
+    golden-section refine with the refit vector at its optimum
+    (``general_sweep.general_golden``; with ``refine_mode="grid"`` each
+    refine round and the nuisance solve), the dense error window and each
+    fallback pass."""
     if cfg.free_idx and tpl.norm.dim() > 0:
         raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
@@ -852,25 +857,23 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
         phi_best, ll_max, a_best, b_best = golden_refine(kind, tpl, x, mask, exposure, phi0 - grid_step,
                                                          phi0 + grid_step, cfg, events)
     elif cfg.refine_mode == "golden":
-        def ll_of(phi):
-            return profile_loglik(kind, tpl, x, mask, exposure, phi[:, None].contiguous(), cfg,
-                                  site="toa_sweep_refine")[0][:, 0]
-
-        phi_best, ll_max = golden_section(
-            ll_of, phi0 - grid_step, phi0 + grid_step, iters=cfg.refine_iters
-        )
+        # the refine and the refit vector at its optimum: one K6 launch on
+        # the card, golden_section over the twin on the CPU
+        phi_best, ll_max, vec_best = general_sweep.general_golden(kind, tpl, x, mask, exposure, phi0 - grid_step,
+                                                                  phi0 + grid_step, cfg)
     else:
         raise ValueError(
             f"unknown refine_mode {cfg.refine_mode!r} (expected 'golden' or 'grid')"
         )
 
-    # 3) nuisance parameters at the optimum (the golden refine's own on the
-    #    fixed-shape path); general mode also yields the full refit shape
-    #    vector for the chi2 model
+    # 3) nuisance parameters at the optimum (the golden refine's own in
+    #    golden mode); general mode also yields the full refit shape vector
+    #    for the chi2 model
     if cfg.free_idx:
-        _, vecs = general_sweep.general_profile(kind, tpl, x, mask, exposure, phi_best[:, None].contiguous(), cfg,
-                                                site="toa_general_nuisance")
-        vec_best = vecs[:, 0]
+        if cfg.refine_mode == "grid":
+            _, vecs = general_sweep.general_profile(kind, tpl, x, mask, exposure, phi_best[:, None].contiguous(),
+                                                    cfg, site="toa_general_nuisance")
+            vec_best = vecs[:, 0]
         a_best, b_best = vec_best[:, 0], vec_best[:, 1 + 3 * tpl.n_comp]
     else:
         if cfg.refine_mode == "grid":

@@ -38,7 +38,16 @@ symbols the library exports. It prints:
   0, 41 and 83 at 128 and 64);
 - for a grouped source, the new kernel at every group size G above 1
   (``general_sweep.GROUPS``, the phases a block takes side by side) at
-  128 and 64 phases, each bitwise the default launch.
+  128 and 64 phases, each bitwise the default launch;
+- the readvaryparam fit's golden-section refine at that shape (25
+  iterations on the brute grid's best phase +- one grid step, then the
+  profile at the optimum): the chain of 2 + 2 refine_iters one-phase
+  launches under ``optimize.golden_section`` and, where the source has
+  ``toafit_general_golden``, its one launch, timed in turns chain / one /
+  one / chain and held bit for bit to the chain in phi_best, ll_max and
+  the vector at the optimum; one P 1 launch (G 1) and one P 2 launch
+  (G 2) timed alone, a round's cost one point a launch and both side by
+  side; the one launch beside ``k6_golden_counts``' bound.
 
 ``--out`` writes everything as JSON.
 """
@@ -60,7 +69,7 @@ import torch
 from crimp_tpu_torch.io import template as template_io
 from crimp_tpu_torch.models import profiles
 from crimp_tpu_torch.obs import costmodel
-from crimp_tpu_torch.ops import general_sweep, toafit, z2_grid
+from crimp_tpu_torch.ops import general_sweep, optimize, toafit, z2_grid
 from crimp_tpu_torch.utils.k3_ab import _tool, sass_functions
 from crimp_tpu_torch.utils.k5_ab import PIPES, _loops, _own, bound_ms, event_ms
 
@@ -72,6 +81,7 @@ PHIS = (128, 64, 1)
 GROUPS = general_sweep.GROUPS[1:]
 TWIN_ROWS = (0, 41, 83)  # rows held to the twin where all of them would take too long
 NM_ITERS = 150
+N_BRUTE = 128  # the fit's brute grid: the golden bracket is its best phase +- one step
 
 
 def _pipe(op: str) -> str:
@@ -169,6 +179,15 @@ class K6Lib:
         lib.toafit_general_nm.argtypes = ([vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + ([ci] if self.grouped else [])
                                           + [vp] * 6)
         lib.toafit_general_nm.restype = ci
+        self.has_golden = hasattr(lib, "toafit_general_golden")
+        if self.has_golden:
+            lib.toafit_general_golden.argtypes = general_sweep.GOLDEN_ARGTYPES
+            lib.toafit_general_golden.restype = ci
+
+    def golden(self, kind, tpl, x, mask, exposure, lo, hi, cfg):
+        """One toafit_general_golden launch: (phi_best, ll_max, vec_best,
+        shrinks, reads)."""
+        return general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=self.lib)
 
     def nm(self, kind, tpl, x, mask, exposure, phis, cfg, group: int | None = None, trace: bool = False):
         S, P = phis.shape
@@ -203,6 +222,54 @@ def operands(dev):
     mask = torch.ones(rows, n_ev, dtype=torch.bool, device=dev)
     exposure = torch.full((rows,), n_ev / 17.0, dtype=torch.float64, device=dev)
     return x, mask, exposure
+
+
+def golden_part(new: K6Lib, kind, tpl, cfg, x, mask, exposure, reps: int) -> dict:
+    """The golden-section refine as the chain and as the one launch (module
+    note), timed in turns."""
+    rows, n_ev = x.shape
+    F = len(cfg.free_idx)
+    grid = torch.as_tensor(np.linspace(-np.pi, np.pi, N_BRUTE), device=x.device)
+    brute = new.nm(kind, tpl, x, mask, exposure, grid.expand(rows, N_BRUTE).contiguous(), cfg)[0]
+    phi0 = grid[torch.argmax(brute, dim=1)]
+    step = 2 * np.pi / (N_BRUTE - 1)
+    lo, hi = (phi0 - step).contiguous(), (phi0 + step).contiguous()
+
+    def at(phis, group):
+        return new.nm(kind, tpl, x, mask, exposure, phis.contiguous(), cfg, group=group)
+
+    def chain():
+        phi, ll = optimize.golden_section(lambda p: at(p[:, None], 1)[0][:, 0], lo, hi, iters=cfg.refine_iters)
+        return phi, ll, at(phi[:, None], 1)[1][:, 0]
+
+    arms = {"chain": chain}
+    if new.has_golden:
+        arms["one launch"] = lambda: new.golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+    want = chain()
+    out = {"rows": rows, "events": n_ev, "refine_iters": cfg.refine_iters, "bitwise_chain": {}}
+    for name, fn in arms.items():
+        got = fn()
+        out["bitwise_chain"][name] = all(torch.equal(a, b) for a, b in zip(got[:3], want))
+    out["ms"] = {name: [] for name in arms}
+    for name in list(arms) + list(reversed(arms)):
+        out["ms"][name].append(event_ms(arms[name], reps))
+    out["launch_ms"] = {"P1 G1": event_ms(lambda: at(lo[:, None], 1), 4 * reps),
+                        "P2 G2": event_ms(lambda: at(torch.stack([lo, hi], dim=1), 2), 4 * reps)}
+    out["ms_per_round"] = {name: min(ms) / (1 + cfg.refine_iters) for name, ms in out["ms"].items()}
+    if new.has_golden:
+        got = new.golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        counts = costmodel.k6_golden_counts(rows, float(n_ev), tpl.n_comp, kind, F, cfg.refine_iters,
+                                            float(got[4].sum()), float(got[3].sum()))
+        out["bound_ms"] = bound_ms(counts)
+    print(f"golden refine ({rows} x {n_ev}, {F} free, {cfg.refine_iters} iterations): "
+          + "; ".join(f"{name} " + " / ".join(f"{v:.3f}" for v in ms) + " ms" for name, ms in out["ms"].items())
+          + "; a round " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["ms_per_round"].items())
+          + "; one launch alone: " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["launch_ms"].items())
+          + (f"; bound {out['bound_ms']:.4f} ms ({100 * out['bound_ms'] / min(out['ms']['one launch']):.2f}%)"
+             if "bound_ms" in out else "")
+          + "; bitwise the chain: " + ", ".join(f"{k} {v}" for k, v in out["bitwise_chain"].items()),
+          flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -299,10 +366,14 @@ def main(argv=None) -> int:
               + ("; by G: " + ", ".join(f"{g}: {v['ms']:.3f} ms{'' if v['bitwise_default'] else ' NOT bitwise'}"
                                         for g, v in row["by_group"].items()) if "by_group" in row else ""),
               flush=True)
+    res["golden"] = golden_part(new, kind, tpl, cfg, x, mask, exposure, max(1, args.reps // 2))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)
+    if not all(res["golden"]["bitwise_chain"].values()):
+        print("golden refine: NOT bitwise the chain", flush=True)
+        return 1
     bad = [r["phis"] for r in res["launches"] if not (r["bitwise_twin"] or args.source)
            or not r.get("bitwise_parent", True)
            or not all(v["bitwise_default"] for v in r.get("by_group", {}).values())]

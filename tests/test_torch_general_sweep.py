@@ -18,10 +18,11 @@ wrapper binds.
 - ``block_sum`` is K6's order (thread-strided sums, then the lane and warp
   trees) and pads with +0.0.
 - The packing: what ``pack`` hands K6 is what the twin starts from.
-- The routing: a ``free_idx`` fit on a "card" tensor goes to K6's launcher
-  for every profile (one brute launch of all n_brute phases, one per golden
-  evaluation, one nuisance, the error scan's passes), never to the twin and
-  never to K5; with no nvcc the launch raises ``KernelError``.
+- The routing: a ``free_idx`` fit on a "card" tensor goes to K6's launchers
+  for every profile (one brute launch of all n_brute phases, one golden
+  launch for the whole refine and its refit vector, the dense window, the
+  error scan's passes), never to the twin and never to K5; with no nvcc the
+  launch raises ``KernelError``.
 - A whole readvaryparam ``fit_toas_batch`` on the CPU against crimp_tpu's.
 """
 
@@ -334,24 +335,33 @@ class TestRouting:
             zero = torch.zeros(phis_.shape, dtype=torch.int32)
             return ll, vec, zero, zero, None
 
+        def golden(kind_, tpl_, x_, mask_, exposure_, lo_, hi_, cfg_, lib=None):
+            calls.append(("golden", tuple(lo_.shape)))
+            assert all(t.is_contiguous() for t in (x_, mask_, exposure_, lo_, hi_))
+            phi, ll, vec = general_sweep.general_golden_reference(kind_, tpl_, x_, mask_, exposure_, lo_, hi_, cfg_)
+            zero = torch.zeros(lo_.shape, dtype=torch.int32)
+            return phi, ll, vec, zero, zero
+
         def refuse(*a, **k):
             raise AssertionError("a card fit ran the twin or K5")
 
         monkeypatch.setattr(toafit, "_on_card", lambda t: True)
         monkeypatch.setattr(general_sweep, "_launch_nm", launcher)
+        monkeypatch.setattr(general_sweep, "_launch_golden", golden)
         monkeypatch.setattr(toafit, "_launch_profile", refuse)
         monkeypatch.setattr(toafit, "_launch_golden", refuse)
         with torch.no_grad():
             routed = toafit.fit_segment(*args)
         for key in plain:
             assert torch.equal(routed[key], plain[key]), key
-        # the brute grid in one launch, 2 + 2 refine_iters golden evaluations,
-        # the nuisance solve, the dense window, then the fallback passes, warm
+        # the brute grid in one launch, the whole golden-section refine with
+        # its refit vector in one, the dense window, then the fallback
+        # passes, warm
         assert calls[0] == ((3, 32), False)
-        assert calls[1:1 + 2 + 2 * cfg.refine_iters] == [((3, 1), False)] * (2 + 2 * cfg.refine_iters)
-        assert calls[3 + 2 * cfg.refine_iters] == ((3, 1), False)
-        assert calls[4 + 2 * cfg.refine_iters] == ((3, 4), True)
-        assert all(warm and shape[1] == cfg.err_chunk for shape, warm in calls[5 + 2 * cfg.refine_iters:])
+        assert calls[1] == ("golden", (3,))
+        assert calls[2] == ((3, 4), True)
+        assert all(warm and shape[1] == cfg.err_chunk for shape, warm in calls[3:])
+        assert sum(c[0] == "golden" for c in calls) == 1
 
     def test_no_library_raises_kernel_error(self, monkeypatch):
         kind, tpl, x, mask, exposure, idx, lo, hi = _fit_inputs()
@@ -372,7 +382,7 @@ class TestRouting:
         general_sweep.reset_launches()
         with pytest.raises(KernelError, match="nvcc"):
             toafit.fit_toas_batch(kind, tpl, x, mask, exposure, cfg, device="cpu")
-        assert general_sweep.LAUNCHES == {"general_sweep": 0, "general_eval": 0}
+        assert general_sweep.LAUNCHES == {"general_sweep": 0, "general_eval": 0, "general_golden": 0}
 
     @pytest.mark.parametrize("bad", ["kind", "components", "free", "dtype", "per_row"])
     def test_operands_k6_cannot_take_raise(self, bad):
@@ -462,7 +472,7 @@ class TestCInterface:
         lib = general_sweep._lib()
         funcs = _c_functions(SRC.read_text())
         assert set(lib.symbols) == set(funcs) == {"toafit_general_nm", "toafit_general_eval",
-                                                  "toafit_general_max_group"}
+                                                  "toafit_general_max_group", "toafit_general_golden"}
         for name, sym in lib.symbols.items():
             assert len(sym.argtypes) == funcs[name], name
 

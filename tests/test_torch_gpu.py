@@ -44,7 +44,14 @@ shrink steps and candidate values read at 128, 64, 7 (a ragged last group
 of phases) and 1 phases, at every group size alike, rerun bitwise, give a
 row alone its batch row's bits, take the decisions of the replay over its
 own evaluation, raise KernelError out of the fit when refused, and
-measure_toas -rv on cuda must agree with the cpu run. On two or more cards, the
+measure_toas -rv on cuda must agree with the cpu run. K6's golden-section
+refine, one launch, must be bitwise the chain of one-phase K6 launches
+under golden_section plus the launch at the optimum in phi_best, ll_max,
+the refit vector and its counts, for every family at 25 and 3 iterations
+on ragged rows and for a NaN row, a row alone its batch row; a fit must
+launch it once and equal the fit through the chain bit for bit; what it
+cannot take and a refused launch raise KernelError, with no chain or twin
+run in its place. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
@@ -1126,6 +1133,133 @@ class TestGeneralSweepKernel:
         step = 2 * np.pi / 100
         for key in ("phShift_LL", "phShift_UL"):
             assert np.max(np.abs(np.asarray(g[key]) - np.asarray(c[key]))) <= step * (1 + 1e-9)
+
+
+def _golden_chain(kind, tpl, x, mask, exposure, lo, hi, cfg):
+    """The chain one toafit_general_golden launch replaces, on the card:
+    golden_section over one-phase K6 launches, then the launch at the
+    optimum; with the shrink steps and candidate values read summed over
+    the refine's 2 + 2 refine_iters launches, per row."""
+    from crimp_tpu_torch.ops import general_sweep
+
+    counts = []
+
+    def sweep(kind_, tpl_, x_, mask_, exposure_, phis_, cfg_):
+        ll, vec, shrinks, reads, _ = general_sweep._launch_nm(kind_, tpl_, x_, mask_, exposure_, phis_, cfg_)
+        counts.append((shrinks[:, 0], reads[:, 0]))
+        return ll, vec
+
+    out = general_sweep.general_golden_reference(kind, tpl, x, mask, exposure, lo, hi, cfg, sweep=sweep)
+    assert len(counts) == 2 + 2 * cfg.refine_iters + 1
+    return out, sum(c[0] for c in counts[:-1]), sum(c[1] for c in counts[:-1])
+
+
+def _nan_bits(a, b) -> bool:
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.gpu
+class TestGeneralGoldenKernel:
+    """K6's golden-section refine in one launch (toafit_general_golden) against
+    the chain it replaced: 2 + 2 refine_iters one-phase K6 launches under
+    golden_section's torch bookkeeping, then the launch at the optimum, bit
+    for bit in phi_best, ll_max and the refit vector, and in the shrink
+    steps and candidate values read it reports."""
+
+    @pytest.mark.parametrize("refine_iters", [25, 3])
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_golden_launch_is_bitwise_the_chain(self, cuda_device, kind, refine_iters):
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands(kind, cuda_device)
+        cfg = cfg._replace(refine_iters=refine_iters)
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        general_sweep.reset_launches()
+        got = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        assert general_sweep.LAUNCHES == {"general_sweep": 0, "general_eval": 0, "general_golden": 1}
+        (phi, ll, vec), shrinks, reads = _golden_chain(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        assert torch.equal(got[0], phi) and torch.equal(got[1], ll) and torch.equal(got[2], vec)
+        assert torch.equal(got[3].long(), shrinks.long()) and torch.equal(got[4].long(), reads.long())
+        assert bool(torch.isfinite(got[1]).all()) and bool(torch.all((got[0] >= lo) & (got[0] <= hi)))
+        # the wrapper: the same launch, the same bits
+        again = general_sweep.general_golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(again, got[:3]))
+        # a row alone (S = 1, padded to its own length) is its batch row
+        n = int(mask[2].sum())
+        alone = general_sweep._launch_golden(kind, tpl, x[2:3, :n].contiguous(), mask[2:3, :n].contiguous(),
+                                             exposure[2:3], lo[2:3], hi[2:3], cfg)
+        assert all(torch.equal(a[0], b[2]) for a, b in zip(alone, got))
+
+    def test_nan_row_is_the_chain(self, cuda_device):
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands("vonmises", cuda_device)
+        cfg = cfg._replace(refine_iters=5)
+        exposure = exposure.clone()
+        exposure[1] = float("nan")
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        got = general_sweep._launch_golden("vonmises", tpl, x, mask, exposure, lo, hi, cfg)
+        (phi, ll, vec), _, _ = _golden_chain("vonmises", tpl, x, mask, exposure, lo, hi, cfg)
+        assert bool(torch.isnan(got[1][1])) and bool(torch.isfinite(got[1][[0, 2]]).all())
+        assert _nan_bits(got[0], phi) and _nan_bits(got[1], ll) and _nan_bits(got[2], vec)
+
+    def test_operands_and_refusals_raise(self, cuda_device, monkeypatch):
+        from crimp_tpu_torch.ops import general_sweep
+        from crimp_tpu_torch.resilience import KernelError
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands("fourier", cuda_device)
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        for bad in ({"lo": lo.float()}, {"hi": hi.cpu()}, {"hi": hi[:2]}, {"cfg": cfg._replace(refine_iters=-1)},
+                    {"kind": "gaussian"}):
+            kw = {"kind": "fourier", "lo": lo, "hi": hi, "cfg": cfg, **bad}
+            with pytest.raises(KernelError):
+                general_sweep.general_golden(kw["kind"], tpl, x, mask, exposure, kw["lo"], kw["hi"], kw["cfg"])
+        lib = general_sweep._lib()
+
+        class Refusing:
+            def __getattr__(self, name):
+                return getattr(lib, name)
+
+            @staticmethod
+            def toafit_general_golden(*args):
+                return 801  # cudaErrorNotSupported
+
+        def refuse(*a, **k):
+            raise AssertionError("the chain or the twin took the refine's place")
+
+        monkeypatch.setattr(general_sweep, "_LIB", Refusing())
+        monkeypatch.setattr(general_sweep, "general_golden_reference", refuse)
+        general_sweep.reset_launches()
+        cfg = cfg._replace(n_brute=16, refine_iters=4, nm_iters=20)
+        with pytest.raises(KernelError, match="toafit_general_golden"):
+            toafit.fit_toas_batch("fourier", tpl.to("cpu"), x.cpu().numpy(), mask.cpu().numpy(),
+                                  exposure.cpu().numpy(), cfg, device=cuda_device)
+        assert general_sweep.LAUNCHES == {"general_sweep": 1, "general_eval": 0, "general_golden": 0}
+
+    def test_fit_launches_one_golden_and_equals_the_chained_fit(self, cuda_device, monkeypatch):
+        """A readvaryparam fit on the card: one golden launch, no twin; bit
+        for bit the fit whose refine is the chain of one-phase launches."""
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, _, cfg = _rv_operands("cauchy", cuda_device)
+        cfg = cfg._replace(n_brute=32, refine_iters=8, nm_iters=40, ph_shift_res=200, err_chunk=4,
+                           err_dense_window=4)
+        host = (x.cpu().numpy(), mask.cpu().numpy(), exposure.cpu().numpy())
+        general_sweep.reset_launches()
+        fit = toafit.fit_toas_batch("cauchy", tpl.to("cpu"), *host, cfg, device=cuda_device)
+        one = dict(general_sweep.LAUNCHES)
+        assert one["general_golden"] == 1 and one["general_eval"] == 0 and one["general_sweep"] >= 2
+
+        def chain(kind_, tpl_, x_, mask_, exposure_, lo_, hi_, cfg_):
+            out, shrinks, reads = _golden_chain(kind_, tpl_, x_, mask_, exposure_, lo_, hi_, cfg_)
+            return (*out, shrinks.int(), reads.int())
+
+        monkeypatch.setattr(general_sweep, "_launch_golden", chain)
+        general_sweep.reset_launches()
+        chained = toafit.fit_toas_batch("cauchy", tpl.to("cpu"), *host, cfg, device=cuda_device)
+        assert general_sweep.LAUNCHES["general_sweep"] == one["general_sweep"] + 2 + 2 * cfg.refine_iters + 1
+        for key in fit:
+            assert torch.equal(fit[key], chained[key]), key
 
 
 @pytest.mark.gpu
