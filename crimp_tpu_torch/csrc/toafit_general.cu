@@ -60,7 +60,11 @@
 //                        launches and the one at the optimum that
 //                        optimize.golden_section drove from the host
 //                        (crimp_tpu/ops/optimize.py:26-49 at
-//                        crimp_tpu/ops/toafit.py:640-660);
+//                        crimp_tpu/ops/toafit.py:640-660); a Fourier row's
+//                        first harmonic pairs are staged once a launch
+//                        (below);
+//   toafit_general_golden_room  the dynamic shared memory that launch may
+//                        take on the current card;
 //   toafit_general_eval  f at given unbounded points (row, phase, M vertices),
 //                        through the same evaluation body, so its values are
 //                        the bits the Nelder-Mead compares;
@@ -106,6 +110,32 @@
 //     order. Each family has its own event loop (eval_walk's KIND), so the
 //     Fourier loop carries none of the others' registers. Passes stop at
 //     the row's last masked event.
+//   - The golden launch's staged pair. A row's 26 rounds walk its events
+//     ~5 700 times, and the pair (C_1, S_1) and the mask byte depend on the
+//     event alone, so golden_kernel forms them once, after row_extent, with
+//     the walk's own operations (__dmul_rn(TWO_PI, x), libdevice cos and
+//     sin), into dynamic shared memory after its two simplices (16-byte
+//     aligned, 17 B an event: the stage), and its walks read them there
+//     in a loop of their own before the computed loop (eval_walk's Pairs:
+//     StagedPairs; nm_kernel and eval_kernel take ComputedPairs, whose code
+//     is the walk's as before; one loop choosing its pair a step took
+//     golden_kernel from 200 to 2 794 B of spill). The values are the same
+//     doubles wherever formed and each thread keeps its chain of events in
+//     order across the two loops, so the stage moves no bit. The host plans n_stage
+//     (ops/general_sweep.py::golden_stage_events): the most events whose
+//     17 B fit toafit_general_golden_room(), the opt-in shared memory less
+//     the block's static Shared, row_extent's partials and GoldenShared,
+//     beside the simplices; a multiple of STAGE_STEP = 4 x 512, or the whole
+//     row. A whole step of every thread at every U (which divides 4) then
+//     lies on one side of n_stage, so no warp parts there; events at or
+//     above it compute their pair in the walk. Von Mises and Cauchy keep
+//     their direct cos((x - cen) - phi): their one phase-free input is x,
+//     so they stage nothing. Why not the 48 SMs the 84 row blocks leave
+//     idle: a row's event sums are pinned to 512 thread chains and a fixed
+//     tree, so a cluster of two 256-thread blocks a row could split the
+//     chains with the same bits, but its 168 blocks would put both halves of
+//     some rows on shared SMs, those rows would run at today's pace, and the
+//     launch ends with its slowest row.
 // Per problem it reports the shrink steps and the candidate values the
 // decision tree read, which obs/costmodel.py::k6_counts charges, and
 // optionally the decision of every step (0 expand, 1 reflect, 2 outside,
@@ -202,6 +232,38 @@ __host__ __device__ constexpr long long problem_doubles(int F) { return (F + 1LL
 __host__ __device__ constexpr long long dyn_bytes(int G, int F) {
   return G * problem_doubles(F) * 8 + G * (F + 1LL) * 4;
 }
+
+// golden_kernel's dynamic shared memory: its two simplices, then (16-byte
+// aligned) the stage's n_stage pairs and n_stage mask bytes, 17 B an event.
+__host__ __device__ constexpr long long stage_offset(int F) { return (dyn_bytes(2, F) + 15) / 16 * 16; }
+__host__ __device__ constexpr long long golden_bytes(int F, long long n_stage) {
+  return stage_offset(F) + n_stage * static_cast<long long>(sizeof(double2) + 1);
+}
+
+// Where a Fourier walk takes an event's first harmonic pair (C_1, S_1) from.
+// nm_kernel and eval_kernel compute it in the walk (cos and sin of 2 pi x);
+// golden_kernel reads it, and the event's mask byte, from the block's stage
+// in dynamic shared memory for the events below n, formed once a launch
+// with the same operations, in a loop of its own, and computes it above n
+// in the walk's loop as the others do.
+struct ComputedPairs {
+  static constexpr bool STAGED = false;
+};
+
+struct StagedPairs {
+  static constexpr bool STAGED = true;
+  // the staged loop's events a thread a step at 1, 2 and 4 vertices a walk
+  // (utils/k6_ab.py --stage-u): each a divisor of 4, so that STAGE_STEP
+  // events are whole steps of every thread
+  static constexpr int U1 = 1, U2 = 2, U4 = 1;
+  const double2* cs;        // (C_1, S_1) of events [0, n)
+  const unsigned char* on;  // their mask bytes, below the row's last masked event
+  long long n;
+};
+
+// An n_stage below the row's events is a multiple of this: a whole step of
+// every thread at every U, so that no warp parts at the stage's end.
+constexpr long long STAGE_STEP = 4 * THREADS;
 
 __device__ __forceinline__ Simplex simplex_of(double* dyn, int G, int F, int g) {
   Simplex s;
@@ -319,8 +381,9 @@ __device__ void load_block(const Args& p, Shared& sh) {
 // is point(w, d), its phase phase(w); its value goes to sink(w, f). Run by
 // every thread of the block, barrier-separated from what comes before and
 // after.
-template <int V, int KIND, class Point, class Phase, class Sink>
-__device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point point, Phase phase, Sink sink) {
+template <int V, int KIND, class Point, class Phase, class Sink, class Pairs = ComputedPairs>
+__device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point point, Phase phase, Sink sink,
+                          Pairs pairs = Pairs()) {
   const int F = p.n_free, K = p.n_comp, D = 3 * K + 2;
   const int tid = threadIdx.x;
   // 1. the flattened vectors: lo + span * sigmoid(u), sigmoid as torch's
@@ -380,7 +443,61 @@ __device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point 
     lsum[g] = 0.0;
     lmin[g] = CUDART_INF;
   }
-  for (long long i0 = tid; i0 < n_hi; i0 += static_cast<long long>(U) * THREADS) {
+  long long i_first = tid;
+  if constexpr (Pairs::STAGED && KIND == FOURIER) {
+    // golden_kernel's staged loop: the steps below min(stage, n_hi) read each
+    // event's (C_1, S_1) and mask byte from the stage; the loop below goes on
+    // from the first step past it with the same chains (STAGE_STEP: a whole
+    // step of every thread, UV events a thread a step), so the bits are the
+    // computed loop's
+    constexpr int UV = V >= 4 ? StagedPairs::U4 : V == 2 ? StagedPairs::U2 : StagedPairs::U1;
+    const long long n_s = pairs.n < n_hi ? pairs.n : n_hi;
+    long long i0 = tid;
+    for (; i0 - tid < n_s; i0 += static_cast<long long>(UV) * THREADS) {
+      double c1[UV], s1[UV], c[UV], s[UV], tot[UV][V];
+      bool on[UV];
+#pragma unroll
+      for (int u = 0; u < UV; ++u) {  // past the row's last masked event: cos and sin of 0, as computed
+        const long long i = i0 + static_cast<long long>(u) * THREADS;
+        const double2 cs = i < n_hi ? pairs.cs[i] : make_double2(1.0, 0.0);
+        on[u] = i < n_hi && pairs.on[i] != 0;
+        c1[u] = c[u] = cs.x;
+        s1[u] = s[u] = cs.y;
+      }
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int u = 0; u < UV; ++u) {
+          if (k > 0) {
+            const double cn = __dsub_rn(__dmul_rn(c[u], c1[u]), __dmul_rn(s[u], s1[u]));
+            s[u] = __dadd_rn(__dmul_rn(s[u], c1[u]), __dmul_rn(c[u], s1[u]));
+            c[u] = cn;
+          }
+#pragma unroll
+          for (int g = 0; g < V; ++g) {
+            if (g < nv) {
+              const double2 ab = sh.ab[g][k];
+              const double term = __dadd_rn(__dmul_rn(ab.x, c[u]), __dmul_rn(ab.y, s[u]));
+              tot[u][g] = k == 0 ? term : __dadd_rn(tot[u][g], term);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UV; ++u) {
+#pragma unroll
+        for (int g = 0; g < V; ++g) {
+          if (g < nv) {
+            const double nz = __ddiv_rn(__dadd_rn(sh.norm[g], tot[u][g]), sh.nf[g]);
+            const double lg = log(tmax(nz, 1e-300));
+            lsum[g] = __dadd_rn(lsum[g], on[u] ? lg : 0.0);
+            lmin[g] = tmin(lmin[g], on[u] ? nz : CUDART_INF);
+          }
+        }
+      }
+    }
+    i_first = i0;
+  }
+  for (long long i0 = i_first; i0 < n_hi; i0 += static_cast<long long>(U) * THREADS) {
     double x[U], tot[U][V];
     bool on[U];
 #pragma unroll
@@ -493,28 +610,30 @@ __device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point 
 // Evaluate n vertices in walks of up to WALK, each walk at the least
 // register block that holds it and with the family's own event loop:
 // vertex w's coordinate d is point(w, d).
-template <int KIND, class Point, class Phase, class Sink>
-__device__ void eval_family(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink) {
+template <int KIND, class Point, class Phase, class Sink, class Pairs = ComputedPairs>
+__device__ void eval_family(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink,
+                            Pairs pairs = Pairs()) {
   for (int w0 = 0; w0 < n; w0 += WALK) {
     const int nv = n - w0 < WALK ? n - w0 : WALK;
     auto pt = [&](int w, int d) { return point(w0 + w, d); };
     auto ph = [&](int w) { return phase(w0 + w); };
     auto sk = [&](int w, double f) { sink(w0 + w, f); };
     if (nv > 2)
-      eval_walk<4, KIND>(p, sh, r, nv, pt, ph, sk);
+      eval_walk<4, KIND>(p, sh, r, nv, pt, ph, sk, pairs);
     else if (nv == 2)
-      eval_walk<2, KIND>(p, sh, r, nv, pt, ph, sk);
+      eval_walk<2, KIND>(p, sh, r, nv, pt, ph, sk, pairs);
     else
-      eval_walk<1, KIND>(p, sh, r, nv, pt, ph, sk);
+      eval_walk<1, KIND>(p, sh, r, nv, pt, ph, sk, pairs);
   }
 }
 
-template <class Point, class Phase, class Sink>
-__device__ void eval_vertices(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink) {
+template <class Point, class Phase, class Sink, class Pairs = ComputedPairs>
+__device__ void eval_vertices(const Args& p, Shared& sh, long long r, int n, Point point, Phase phase, Sink sink,
+                              Pairs pairs = Pairs()) {
   switch (p.kind) {
-    case FOURIER: eval_family<FOURIER>(p, sh, r, n, point, phase, sink); break;
-    case VONMISES: eval_family<VONMISES>(p, sh, r, n, point, phase, sink); break;
-    default: eval_family<CAUCHY>(p, sh, r, n, point, phase, sink); break;
+    case FOURIER: eval_family<FOURIER>(p, sh, r, n, point, phase, sink, pairs); break;
+    case VONMISES: eval_family<VONMISES>(p, sh, r, n, point, phase, sink, pairs); break;
+    default: eval_family<CAUCHY>(p, sh, r, n, point, phase, sink, pairs); break;
   }
 }
 
@@ -669,9 +788,10 @@ __device__ void advance(const Args& p, Problem& pr, const Simplex& sx, long long
 // trace_row(g). The three are functions evaluated where they are used, so
 // nm_kernel reads its phases and start from global memory as it always did.
 // Run by every thread of the block.
-template <int G, class PhaseOf, class Start, class TraceRow>
+template <int G, class PhaseOf, class Start, class TraceRow, class Pairs = ComputedPairs>
 __device__ __forceinline__ void run_problems(const Args& p, Shared& sh, double* dyn, long long r, int n_act, int iters,
-                                             signed char* trace, PhaseOf phase, Start start, TraceRow trace_row) {
+                                             signed char* trace, PhaseOf phase, Start start, TraceRow trace_row,
+                                             Pairs pairs = Pairs()) {
   const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (warp < G) {  // warp g starts problem g: its simplex and its first positions
     Problem& pr = sh.prob[warp];
@@ -716,7 +836,8 @@ __device__ __forceinline__ void run_problems(const Args& p, Shared& sh, double* 
         [&](int s) { return sh.prob[sh.slot_g[s]].phi; },
         [&](int s, double f) {
           sh.prob[sh.slot_g[s]].fv[sh.slot_j[s]] = f;
-        });
+        },
+        pairs);
     if (warp < G && sh.prob[warp].stage != ST_DONE)
       advance(p, sh.prob[warp], simplex_of(dyn, G, F, warp), trace_row(warp), iters, trace);
     __syncthreads();
@@ -805,10 +926,12 @@ nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out
 // phi_best = f1 > f2 ? x1 : x2, ll_max = torch.maximum(f1, f2) and the
 // flattened vector of the problem that gave phi_best: the bits a one-phase
 // launch at phi_best gives. shrinks and reads sum the row's 2 + 2 refine
-// problems' counts.
+// problems' counts. A Fourier row's first harmonic pairs and mask bytes of
+// events below n_stage are staged once (the design note); every walk of its
+// rounds reads them there.
 __global__ void __launch_bounds__(THREADS, 1)
 golden_kernel(const Args p, const double* lo, const double* hi, const double* u0, int iters, int refine,
-              double* phi_best, double* ll_max, double* vec_out, int* shrinks, int* reads) {
+              long long n_stage, double* phi_best, double* ll_max, double* vec_out, int* shrinks, int* reads) {
   extern __shared__ __align__(16) double dyn[];
   __shared__ Shared sh;
   __shared__ GoldenShared gs;
@@ -816,6 +939,21 @@ golden_kernel(const Args p, const double* lo, const double* hi, const double* u0
   const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   load_block(p, sh);
   row_extent(p, sh, r);
+  // the stage: (C_1, S_1) as eval_walk computes them, and the mask, up to
+  // the row's last masked event (the barrier before the first round orders it)
+  double2* stage_cs = reinterpret_cast<double2*>(dyn + stage_offset(F) / 8);
+  unsigned char* stage_on = reinterpret_cast<unsigned char*>(stage_cs + n_stage);
+  const StagedPairs pairs{stage_cs, stage_on, p.kind == FOURIER ? n_stage : 0};
+  {
+    const long long N = p.n_events, n_fill = pairs.n < sh.n_hi ? pairs.n : sh.n_hi;
+    const double* xr = p.x + r * N;
+    const unsigned char* m = p.mask + r * N;
+    for (long long i = tid; i < n_fill; i += THREADS) {
+      const double ang = __dmul_rn(TWO_PI, xr[i]);
+      stage_cs[i] = make_double2(cos(ang), sin(ang));
+      stage_on[i] = m[i];
+    }
+  }
   for (int d = tid; d < F; d += THREADS) gs.u0[d] = u0[r * F + d];
   double a = 0.0, b = 0.0;  // thread 0: the bracket
   int n_shrink = 0, n_read = 0;
@@ -829,7 +967,7 @@ golden_kernel(const Args p, const double* lo, const double* hi, const double* u0
   for (int round = 0;; ++round) {
     run_problems<2>(
         p, sh, dyn, r, 2, iters, nullptr, [&](int g) { return gs.x[g]; }, [&](int d) { return gs.u0[d]; },
-        [](int) { return 0LL; });
+        [](int) { return 0LL; }, pairs);
     if (warp < 2 && lane == 0) {
       const Simplex sx = simplex_of(dyn, 2, F, warp);
       const int best = best_position(sx, F);
@@ -882,14 +1020,16 @@ bool bad_args(int n_rows, int n_phis, long long n_events, int n_comp, int kind, 
          static_cast<long long>(n_rows) * n_phis > 2147483647LL;
 }
 
-// The dynamic shared memory a block of G problems may take on the current card.
-long long smem_room() {
+// The dynamic shared memory a block may take on the current card beside its
+// static shared memory: Shared, row_extent's partials and extra bytes of its
+// own (golden_kernel's GoldenShared).
+long long smem_room(size_t extra = 0) {
   int dev = 0, optin = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
     return 0;
-  // the block's static shared memory: Shared and row_extent's partials
-  return static_cast<long long>(optin) - static_cast<long long>(sizeof(Shared) + 2 * WARPS * sizeof(long long));
+  return static_cast<long long>(optin) -
+         static_cast<long long>(sizeof(Shared) + 2 * WARPS * sizeof(long long) + extra);
 }
 
 template <int G>
@@ -944,6 +1084,10 @@ extern "C" int toafit_general_nm(const double* x, const unsigned char* mask, con
   }
 }
 
+// The dynamic shared memory golden_kernel may take on the current card: its
+// two simplices and its stage (ops/general_sweep.py::golden_stage_events).
+extern "C" long long toafit_general_golden_room() { return smem_room(sizeof(GoldenShared)); }
+
 // The readvaryparam fit's golden-section refine of every row's profile on
 // [lo, hi] (each (S,)) and the refit vector at its optimum, one block a row
 // (golden_kernel): phi_best (S,), ll_max (S,), vec (S, D) with D = 3 n_comp
@@ -951,24 +1095,29 @@ extern "C" int toafit_general_nm(const double* x, const unsigned char* mask, con
 // values read summed over a row's 2 + 2 refine_iters problems. Bitwise the
 // chain it replaces: optimize.golden_section over one-phase
 // toafit_general_nm launches (iters Nelder-Mead steps from u0 (S, F)), then
-// the launch at phi_best for its vector. Outputs may not alias the inputs.
+// the launch at phi_best for its vector. n_stage: the events of a Fourier
+// row whose first harmonic pair is staged in shared memory (0 to n_events;
+// below n_events a multiple of 4 x 512); it moves no bit, and a launch whose
+// stage does not fit toafit_general_golden_room() is refused. Outputs may
+// not alias the inputs.
 extern "C" int toafit_general_golden(const double* x, const unsigned char* mask, const double* exposure,
                                      const double* lo_phi, const double* hi_phi, const double* base,
                                      const int* free_idx, const double* lo, const double* span, const double* u0,
                                      int n_rows, long long n_events, int n_comp, int kind, int n_free, int iters,
-                                     int refine_iters, double* phi_best, double* ll_max, double* vec, int* shrinks,
-                                     int* reads, void* stream) {
-  if (bad_args(n_rows, 2, n_events, n_comp, kind, n_free) || iters < 0 || refine_iters < 0)
+                                     int refine_iters, long long n_stage, double* phi_best, double* ll_max,
+                                     double* vec, int* shrinks, int* reads, void* stream) {
+  if (bad_args(n_rows, 2, n_events, n_comp, kind, n_free) || iters < 0 || refine_iters < 0 || n_stage < 0 ||
+      n_stage > n_events || (n_stage != n_events && n_stage % STAGE_STEP != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{x, mask, exposure, nullptr, base, free_idx, lo, span, n_events, 2, n_comp, kind, n_free};
-  const long long bytes = dyn_bytes(2, n_free);
-  if (bytes > smem_room()) return static_cast<int>(cudaErrorInvalidValue);
+  const long long bytes = golden_bytes(n_free, n_stage);
+  if (bytes > toafit_general_golden_room()) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaFuncSetAttribute(golden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes));
   if (set != cudaSuccess) return static_cast<int>(set);
   golden_kernel<<<static_cast<unsigned>(n_rows), THREADS, static_cast<size_t>(bytes),
-                  static_cast<cudaStream_t>(stream)>>>(args, lo_phi, hi_phi, u0, iters, refine_iters, phi_best,
-                                                       ll_max, vec, shrinks, reads);
+                  static_cast<cudaStream_t>(stream)>>>(args, lo_phi, hi_phi, u0, iters, refine_iters, n_stage,
+                                                       phi_best, ll_max, vec, shrinks, reads);
   return static_cast<int>(cudaGetLastError());
 }
 

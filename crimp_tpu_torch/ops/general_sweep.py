@@ -28,7 +28,9 @@ their two golden points side by side (G 2) through the Nelder-Mead body
 ``toafit_general_nm`` runs, ``LAUNCHES["general_golden"]``; on a CPU
 tensor ``general_golden_reference``, ``optimize.golden_section`` over
 one-phase twins and the twin at the optimum. Both give the bits of that
-chain.
+chain. The launch stages a Fourier row's first harmonic pairs in shared
+memory once; ``golden_stage_events`` plans how many events (host code,
+the C entry refuses a stage that does not fit); the stage moves no bit.
 
 ``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
 m, N) temporaries: the template with the free entries set to
@@ -77,9 +79,11 @@ INV_TWO_PI = 1.0 / (2 * math.pi)
 LAUNCHES = {"general_sweep": 0, "general_eval": 0, "general_golden": 0}
 
 # toafit_general_golden: x, mask, exposure, lo, hi, base, free_idx, box lo, span, u0; n_rows, n_events,
-# n_comp, kind, n_free, nm_iters, refine_iters; phi_best, ll_max, vec, shrinks, reads, stream
+# n_comp, kind, n_free, nm_iters, refine_iters, n_stage; phi_best, ll_max, vec, shrinks, reads, stream
 GOLDEN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 6)
+STAGE_STEP = 4 * THREADS  # csrc/toafit_general.cu STAGE_STEP: a stage short of the row ends on a whole step
+STAGE_EVENT_BYTES = 16 + 1  # a staged event: its (C_1, S_1) and its mask byte
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -266,6 +270,8 @@ def _lib():
             lib.toafit_general_eval.restype = ci
             lib.toafit_general_golden.argtypes = GOLDEN_ARGTYPES
             lib.toafit_general_golden.restype = ci
+            lib.toafit_general_golden_room.argtypes = []
+            lib.toafit_general_golden_room.restype = cl
             _LIB = lib
     return _LIB
 
@@ -280,6 +286,29 @@ def group_for(n_phis: int, n_free: int, lib=None, preferred: int = GROUP) -> int
     while g > 1 and (g > n_phis or g > cap):
         g //= 2
     return g
+
+
+def simplex_bytes(group: int, n_free: int) -> int:
+    """The dynamic shared memory of ``group`` problems' simplices, values,
+    candidates and orders at ``n_free`` parameters (csrc dyn_bytes)."""
+    doubles = (n_free + 1) * n_free + (n_free + 1) + 4 * n_free
+    return group * doubles * 8 + group * (n_free + 1) * 4
+
+
+def golden_stage_events(n_free: int, n_events: int, room: int) -> int:
+    """n_stage, the events of a row whose first harmonic pair K6's golden
+    launch stages in shared memory: the most whose ``STAGE_EVENT_BYTES``
+    each fit ``room`` (``toafit_general_golden_room``: the card's
+    shared memory a block less the kernel's static state) beside the two
+    simplices (16-byte aligned), a multiple of ``STAGE_STEP``, or every one
+    of ``n_events`` where they all fit. Raises ``KernelError`` where not
+    even the two simplices fit."""
+    base = -(-simplex_bytes(2, n_free) // 16) * 16
+    if base > room:
+        raise resilience.KernelError(f"general_golden: two simplices of {n_free} free parameters ({base} B) do not "
+                                     f"fit the card's shared memory ({room} B)")
+    fit = (room - base) // STAGE_EVENT_BYTES
+    return n_events if fit >= n_events else fit // STAGE_STEP * STAGE_STEP
 
 
 def pass_plan(trace: list, n_free: int, group: int) -> torch.Tensor:
@@ -399,11 +428,14 @@ def _launch_eval(kind, tpl, x, mask, exposure, phis, cfg, u):
     return f
 
 
-def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None):
+def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None, stage: int | None = None):
     """Check the operands and launch K6's golden-section refine once (``lib``
     a K6 library, K6's own when None): (phi_best (S,), ll_max (S,), refit
     vectors (S, D), shrinks (S,) int32 and reads (S,) int32, each summed
-    over a row's 2 + 2 ``cfg.refine_iters`` problems)."""
+    over a row's 2 + 2 ``cfg.refine_iters`` problems). ``stage`` is the
+    launch's n_stage, the Fourier events whose first harmonic pair it
+    stages in shared memory: None plans it (``golden_stage_events``; 0 for
+    the families that take no pair), an int pins it (it moves no bit)."""
     S = x.shape[0]
     D = 3 * tpl.n_comp + 2
     for name, t in (("lo", lo), ("hi", hi)):
@@ -423,13 +455,13 @@ def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None):
 
     lib = lib or _lib()
     with profiling.launch_window(x.device):
-        if lib.toafit_general_max_group(len(cfg.free_idx)) < 2:
-            raise resilience.KernelError(f"general_golden: two simplices of {len(cfg.free_idx)} free parameters do "
-                                         "not fit the card's shared memory")
+        if stage is None:
+            stage = golden_stage_events(len(cfg.free_idx), x.shape[1], lib.toafit_general_golden_room())
+            stage = stage if kind == FOURIER else 0
         rc = lib.toafit_general_golden(
             x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), lo.data_ptr(), hi.data_ptr(), pk["base"].data_ptr(),
             pk["free_idx"].data_ptr(), pk["lo"].data_ptr(), pk["span"].data_ptr(), pk["u0"].data_ptr(), S,
-            x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters, cfg.refine_iters,
+            x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters, cfg.refine_iters, stage,
             phi.data_ptr(), ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(), z2_grid.stream_of(x))
     z2_grid.check_launch(rc, "toafit_general_golden")
     _count_launch("general_golden")

@@ -3,6 +3,7 @@ pipe, and its Nelder-Mead launches timed, against an earlier version of
 its source.
 
     python -m crimp_tpu_torch.utils.k6_ab [--parent SRC.cu] [--source SRC.cu] [--out FILE] [--reps N]
+                                          [--probe] [--stage-u U1,U2,U4 ...]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. It builds K6's source with ``z2_grid.NVCC_FLAGS`` and, with
@@ -15,17 +16,20 @@ after ``iters``, ``toafit_general_max_group``); the binding follows the
 symbols the library exports. It prints:
 
 - each kernel's registers, stack frame and spill bytes (``-Xptxas -v``);
+- whether ``nm_kernel<1, 2, 4>`` and ``eval_kernel`` compile to the
+  parent's SASS instruction for instruction;
 - the evaluation loop's instructions per vertex-event by pipe (DFMA, DADD,
   DMUL, MUFU, ...), from ``cuobjdump -sass`` of a counting build of each
   source with the family fixed to Fourier and K to 6 (``p.kind`` -> 0,
   ``p.n_comp`` -> 6: every component loop unrolls): of the backward-branch
-  loops that load an event's phase (``LDG.E.64``, one an event) and take
-  reciprocals (``MUFU.RCP64H``: two a vertex-event, the division's and the
-  libdevice ``log``'s), each one's own instructions over its vertex-events,
-  and its local loads and stores (spills). The libdevice ``cos``, ``sin``
-  and ``log`` fast paths are inline in that count; their slow paths (and
-  the division's) are subroutines outside the loop (``CALL``, counted
-  apart);
+  loops that load an event (its phase, ``LDG.E.64``, or in the golden
+  kernel's staged loop its mask byte from shared memory, ``LDS.U8``: one an
+  event) and take reciprocals (``MUFU.RCP64H``: two a vertex-event, the
+  division's and the libdevice ``log``'s), each one's own instructions over
+  its vertex-events, and its local loads and stores (spills). The
+  libdevice ``cos``, ``sin`` and ``log`` fast paths are inline in that
+  count; their slow paths (and the division's) are subroutines outside the
+  loop (``CALL``, counted apart);
 - on the north star's fit shape (84 rows x 10 000 uniform phases, seed 7,
   the bundled Fourier template with its 13 ``vary`` parameters free,
   ``nm_iters`` 150): raw ``toafit_general_nm`` launches at 128 (the brute
@@ -39,15 +43,27 @@ symbols the library exports. It prints:
 - for a grouped source, the new kernel at every group size G above 1
   (``general_sweep.GROUPS``, the phases a block takes side by side) at
   128 and 64 phases, each bitwise the default launch;
-- the readvaryparam fit's golden-section refine at that shape (25
-  iterations on the brute grid's best phase +- one grid step, then the
-  profile at the optimum): the chain of 2 + 2 refine_iters one-phase
-  launches under ``optimize.golden_section`` and, where the source has
-  ``toafit_general_golden``, its one launch, timed in turns chain / one /
-  one / chain and held bit for bit to the chain in phi_best, ll_max and
-  the vector at the optimum; one P 1 launch (G 1) and one P 2 launch
-  (G 2) timed alone, a round's cost one point a launch and both side by
-  side; the one launch beside ``k6_golden_counts``' bound.
+- the readvaryparam fit's golden-section refine (25 iterations on the
+  brute grid's best phase +- one grid step, then the profile at the
+  optimum) at that shape and on the north star's rows (phase 14's
+  operands: the surrogate's 84 folded segments of 10 000 events): the chain
+  of 2 + 2 refine_iters one-phase launches under
+  ``optimize.golden_section`` and the one ``toafit_general_golden``
+  launch, with its first harmonic pairs staged (the plan,
+  ``general_sweep.golden_stage_events``) and not (n_stage 0), the
+  parent's launch and each ``--stage-u`` variant (the staged loop's U at
+  1, 2 and 4 vertices a walk, ``StagedPairs``), timed in turns and reversed
+  and held bit for bit to the chain in phi_best, ll_max and the vector at
+  the optimum; one P 1 launch (G 1) and one P 2 launch (G 2) timed alone;
+  the one launch beside ``k6_golden_counts``' bound;
+- with ``--probe``, a round attributed: a probe build of each source
+  (``probe_source``: ``clock64()`` stamps in thread 0 of every block around
+  a walk's vertex transform, event loop, warp sums, warp 0's tree and its
+  barriers, and a pass's bookkeeping, ``advance`` and barriers, each part's
+  cycles added per block) runs the golden launch on the north star's rows
+  (the new source staged and at n_stage 0, whose event loops differ by the
+  pair's formation alone) and ``nm_kernel<4>`` at 84 x 128; the shares of a
+  block's cycles, the cycles a round, pass and walk.
 
 ``--out`` writes everything as JSON.
 """
@@ -67,14 +83,17 @@ import numpy as np
 import torch
 
 from crimp_tpu_torch.io import template as template_io
-from crimp_tpu_torch.models import profiles
+from crimp_tpu_torch.models import profiles, timing
 from crimp_tpu_torch.obs import costmodel
-from crimp_tpu_torch.ops import general_sweep, optimize, toafit, z2_grid
+from crimp_tpu_torch.ops import anchored, general_sweep, optimize, toafit, z2_grid
+from crimp_tpu_torch.utils import surrogate
 from crimp_tpu_torch.utils.k3_ab import _tool, sass_functions
 from crimp_tpu_torch.utils.k5_ab import PIPES, _loops, _own, bound_ms, event_ms
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 TEMPLATE = os.path.join(REPO, "tests", "data", "1e2259_template.txt")
+PAR = os.path.join(REPO, "tests", "data", "1e2259.par")
+INTERVALS = os.path.join(REPO, "tests", "data", "timIntToAs_1e2259.txt")
 OUT_DIR = os.path.join(REPO, "build", "k6_ab")
 SHAPE = (84, 10000)  # rows x events a row: the north star's fit
 PHIS = (128, 64, 1)
@@ -98,6 +117,94 @@ def counting_source(text: str) -> str:
             .replace("for (int k = 0; k < K; ++k)", "_Pragma(\"unroll\") for (int k = 0; k < K; ++k)"))
 
 
+# the probe build's parts of a block's time (cycles) and counts, by index
+PROBE_PARTS = ("vertex transform", "transform barriers", "event loop", "warp sums", "barrier after the loop",
+               "warp 0's tree and value", "walk's last barrier", "pass bookkeeping", "advance",
+               "barrier after advance", "walks", "passes", "block", "vertices", "before the first pass", "rounds")
+PROBE_COUNTS = ("walks", "passes", "vertices", "rounds")
+PROBE_BLOCKS = 8192
+_PROBE_HEAD = r"""
+// clock64() probe (utils/k6_ab.py): thread 0 of each block adds the cycles of its parts
+#define K6P_PARTS %d
+#define K6P_BLOCKS %d
+__device__ unsigned long long k6p_acc[K6P_BLOCKS * K6P_PARTS];
+__device__ __forceinline__ long long k6p_now() {
+  long long t;
+  asm volatile("mov.u64 %%0, %%%%clock64;" : "=l"(t)::"memory");
+  return t;
+}
+__device__ __forceinline__ void k6p_add(int part, long long v) {
+  if (threadIdx.x == 0 && blockIdx.x < K6P_BLOCKS)
+    atomicAdd(&k6p_acc[blockIdx.x * K6P_PARTS + part], static_cast<unsigned long long>(v));
+}
+#define K6P_MARK(part) do { const long long k6p_s = k6p_now(); k6p_add(part, k6p_s - k6p_t); k6p_t = k6p_s; } while (0)
+#define K6P_BAR(work, bar) do { K6P_MARK(work); __syncthreads(); K6P_MARK(bar); } while (0)
+""" % (len(PROBE_PARTS), PROBE_BLOCKS)
+_PROBE_TAIL = """
+extern "C" int k6_probe_reset() {
+  void* acc = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&acc, k6p_acc);
+  return static_cast<int>(e != cudaSuccess ? e : cudaMemset(acc, 0, sizeof(k6p_acc)));
+}
+extern "C" int k6_probe_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, k6p_acc, sizeof(k6p_acc)));
+}
+"""
+# (text, its stamped form): each text once in the source, staged or not
+_PROBE_STAMPS = (
+    ("  const int tid = threadIdx.x;\n  // 1. the flattened vectors",
+     "  const int tid = threadIdx.x;\n  long long k6p_t = k6p_now();\n  k6p_add(10, 1);\n  k6p_add(13, nv);\n"
+     "  // 1. the flattened vectors"),
+    ("sh.vphi[g] = phase(g);\n  __syncthreads();", "sh.vphi[g] = phase(g);\n  K6P_BAR(0, 1);"),
+    ("  __syncthreads();\n\n  // 4. one walk over the events", "  K6P_BAR(0, 1);\n\n  // 4. one walk over the events"),
+    ("\n  // 5. the block's sums and minimums", "\n  K6P_MARK(2);\n  // 5. the block's sums and minimums"),
+    ("      sh.red[WALK + g][warp] = lmin[g];\n    }\n  }\n  __syncthreads();",
+     "      sh.red[WALK + g][warp] = lmin[g];\n    }\n  }\n  K6P_BAR(3, 4);"),
+    ("  __syncthreads();\n}\n\n// Evaluate n vertices", "  K6P_BAR(5, 6);\n}\n\n// Evaluate n vertices"),
+    ("  for (;;) {\n    // the pass's vertices",
+     "  for (;;) {\n    long long k6p_t = k6p_now();\n    k6p_add(11, 1);\n    // the pass's vertices"),
+    ("    __syncthreads();\n    if (total == 0) break;", "    K6P_BAR(7, 7);\n    if (total == 0) break;"),
+    ("    if (warp < G && sh.prob[warp].stage != ST_DONE)\n      advance(",
+     "    k6p_t = k6p_now();\n    if (warp < G && sh.prob[warp].stage != ST_DONE)\n      advance("),
+    ("trace_row(warp), iters, trace);\n    __syncthreads();", "trace_row(warp), iters, trace);\n    K6P_BAR(8, 9);"),
+    ("  const long long r = blockIdx.x;\n  const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;",
+     "  const long long r = blockIdx.x;\n  const long long k6p_k0 = k6p_now();\n"
+     "  const int F = p.n_free, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;"),
+    ("  for (int round = 0;; ++round) {\n",
+     "  k6p_add(14, k6p_now() - k6p_k0);\n  for (int round = 0;; ++round) {\n    k6p_add(15, 1);\n"),
+    ("gs.best[w], vec_out + r * (3 * p.n_comp + 2));\n}",
+     "gs.best[w], vec_out + r * (3 * p.n_comp + 2));\n  k6p_add(12, k6p_now() - k6p_k0);\n}"),
+    ("  const int n_act = P - q0 < G ? static_cast<int>(P - q0) : G;\n",
+     "  const int n_act = P - q0 < G ? static_cast<int>(P - q0) : G;\n  const long long k6p_k0 = k6p_now();\n"),
+    ("  run_problems<G>(\n", "  k6p_add(14, k6p_now() - k6p_k0);\n  run_problems<G>(\n"),
+    ("vec_out[b * D + sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));\n    }\n  }\n}",
+     "vec_out[b * D + sh.fidx[d]] = __dadd_rn(sh.lo[d], __dmul_rn(sh.span[d], sig));\n    }\n  }\n"
+     "  k6p_add(12, k6p_now() - k6p_k0);\n}"),
+)
+
+
+def probe_source(text: str) -> str:
+    """The source with ``clock64()`` stamps (module note): thread 0 of every
+    block adds each part's cycles to ``k6p_acc`` (block, part), read by the
+    added C entries ``k6_probe_reset`` and ``k6_probe_read``. Raises where
+    the source lacks a stamped text."""
+    for old, new in _PROBE_STAMPS:
+        if text.count(old) != 1:
+            raise ValueError(f"probe_source: {old!r} is in the source {text.count(old)} times, not once")
+        text = text.replace(old, new)
+    head = "#include <math_constants.h>\n"
+    return text.replace(head, head + _PROBE_HEAD, 1) + _PROBE_TAIL
+
+
+def stage_u_source(text: str, u: tuple) -> str:
+    """The source with the golden kernel's staged loop taking U events a
+    thread a step at 1, 2 and 4 vertices a walk from ``u``."""
+    pattern = r"static constexpr int U1 = \d+, U2 = \d+, U4 = \d+;"
+    if len(re.findall(pattern, text)) != 1 or any(4 % v for v in u):
+        raise ValueError(f"stage_u_source: no single StagedPairs U line, or a U in {u} that does not divide 4")
+    return re.sub(pattern, "static constexpr int U1 = %d, U2 = %d, U4 = %d;" % tuple(u), text)
+
+
 def build(sources: dict) -> dict:
     """{tag: (library path, -Xptxas -v log)} for {tag: source path}, one
     nvcc a source, all started together."""
@@ -118,11 +225,12 @@ def build(sources: dict) -> dict:
     return built
 
 
-def counting_build(tag: str, src: str) -> str:
-    path = os.path.join(OUT_DIR, f"toafit_general_{tag}_count.cu")
+def derived(tag: str, src: str, transform, kind: str = "count") -> str:
+    """``src`` through ``transform``, written to build/k6_ab/ for nvcc."""
+    path = os.path.join(OUT_DIR, f"toafit_general_{tag}_{kind}.cu")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(src) as fh, open(path, "w") as out:
-        out.write(counting_source(fh.read()))
+        out.write(transform(fh.read()))
     return path
 
 
@@ -135,7 +243,7 @@ def event_loops(instrs: list) -> list:
     for loop in loops:
         ops = _own(instrs, loop, loops)
         n_rcp = sum(op.startswith("MUFU.RCP64H") for op in ops)
-        n_x = sum(op.startswith("LDG.E.64") for op in ops)
+        n_x = sum(op.startswith("LDG.E.64") for op in ops) or sum(op.startswith("LDS.U8") for op in ops)
         if n_rcp >= 2 and n_x:
             n_ve = n_rcp // 2  # a vertex-event: its division and its log, a reciprocal each
             per = collections.Counter(_pipe(op) for op in ops)
@@ -152,18 +260,52 @@ def per_local(ops: list) -> int:
 
 
 def sass_report(lib_path: str) -> dict:
-    """{kernel: [evaluation loops]} of the counting build's nm and eval kernels."""
+    """{kernel: [evaluation loops]} of the counting build's nm, eval and
+    golden kernels."""
+    return {label: event_loops(instrs) for label, instrs in kernel_sass(lib_path).items()}
+
+
+def kernel_sass(lib_path: str) -> dict:
+    """{nm_kernel<G> / eval_kernel / golden_kernel: its SASS} of a library."""
     out = {}
     for name, instrs in sass_functions(lib_path).items():
-        m = re.search(r"(nm_kernel|eval_kernel)(?:ILi(\d+)E)?", name)
+        m = re.search(r"(nm_kernel|eval_kernel|golden_kernel)(?:ILi(\d+)E)?", name)
         if m:
-            label = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
-            out[label] = event_loops(instrs)
+            out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = instrs
     return out
+
+
+def same_sass(lib_a: str, lib_b: str) -> dict:
+    """{kernel: whether both libraries compile it to the same instructions
+    (opcodes and operands in order)} for the nm and eval kernels."""
+    a, b = kernel_sass(lib_a), kernel_sass(lib_b)
+    return {k: [i[1:] for i in a[k]] == [i[1:] for i in b.get(k, [])] for k in sorted(a)
+            if k.startswith(("nm_kernel", "eval_kernel"))}
 
 
 def ptxas(log: str) -> dict:
     return {e["name"]: {k: e[k] for k in ("registers", "stack", "spill")} for e in z2_grid.ptxas_entries(log)}
+
+
+STAGE_ARG = 17  # n_stage's place in toafit_general_golden's arguments
+
+
+class _Unstaged:
+    """A K6 library from before the staged pair, called as a staged one: its
+    golden entry takes no n_stage and it has no room to plan one."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    @staticmethod
+    def toafit_general_golden_room():
+        return 1 << 40
+
+    def toafit_general_golden(self, *args):
+        return self.lib.toafit_general_golden(*args[:STAGE_ARG], *args[STAGE_ARG + 1:])
 
 
 class K6Lib:
@@ -180,14 +322,35 @@ class K6Lib:
                                           + [vp] * 6)
         lib.toafit_general_nm.restype = ci
         self.has_golden = hasattr(lib, "toafit_general_golden")
+        self.staged = hasattr(lib, "toafit_general_golden_room")
         if self.has_golden:
-            lib.toafit_general_golden.argtypes = general_sweep.GOLDEN_ARGTYPES
+            args = list(general_sweep.GOLDEN_ARGTYPES)
+            if self.staged:
+                lib.toafit_general_golden_room.argtypes = []
+                lib.toafit_general_golden_room.restype = cl
+            else:
+                del args[STAGE_ARG]
+            lib.toafit_general_golden.argtypes = args
             lib.toafit_general_golden.restype = ci
+        self.probe = hasattr(lib, "k6_probe_read")
+        if self.probe:
+            lib.k6_probe_reset.restype = lib.k6_probe_read.restype = ci
+            lib.k6_probe_read.argtypes = [vp]
 
-    def golden(self, kind, tpl, x, mask, exposure, lo, hi, cfg):
+    def golden(self, kind, tpl, x, mask, exposure, lo, hi, cfg, stage: int | None = None):
         """One toafit_general_golden launch: (phi_best, ll_max, vec_best,
-        shrinks, reads)."""
-        return general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=self.lib)
+        shrinks, reads); ``stage`` pins n_stage (the staged source's)."""
+        lib = self.lib if self.staged else _Unstaged(self.lib)
+        return general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=lib, stage=stage)
+
+    def probed(self, fn, n_blocks: int) -> np.ndarray:
+        """fn()'s probe sums, (n_blocks, len(PROBE_PARTS)) uint64."""
+        z2_grid.check_launch(self.lib.k6_probe_reset(), "k6_probe_reset")
+        fn()
+        torch.cuda.synchronize()
+        acc = np.zeros(PROBE_BLOCKS * len(PROBE_PARTS), dtype=np.uint64)
+        z2_grid.check_launch(self.lib.k6_probe_read(acc.ctypes.data), "k6_probe_read")
+        return acc.reshape(PROBE_BLOCKS, -1)[:n_blocks]
 
     def nm(self, kind, tpl, x, mask, exposure, phis, cfg, group: int | None = None, trace: bool = False):
         S, P = phis.shape
@@ -224,16 +387,38 @@ def operands(dev):
     return x, mask, exposure
 
 
-def golden_part(new: K6Lib, kind, tpl, cfg, x, mask, exposure, reps: int) -> dict:
-    """The golden-section refine as the chain and as the one launch (module
-    note), timed in turns."""
+def north_star_operands(dev):
+    """Phase 14's rows: the surrogate's 84 segments of 10 000 events (seed 7)
+    folded on the card and padded, with their exposures."""
+    times, intervals = surrogate.build_surrogate(PAR, INTERVALS, TEMPLATE, events_per_toa=10000, seed=7)
+    segs = surrogate.slice_intervals(times, intervals["ToA_tstart"], intervals["ToA_tend"])
+    seg_phases, _ = anchored.fold_segments(timing.resolve(PAR), segs, device=dev)
+    phases, masks = toafit.pad_segments(seg_phases)
+    return (torch.as_tensor(phases, device=dev), torch.as_tensor(masks, device=dev),
+            torch.as_tensor(intervals["ToA_exposure"].astype(float), device=dev))
+
+
+def brute_grid(dev, rows: int) -> torch.Tensor:
+    return torch.as_tensor(np.linspace(-np.pi, np.pi, N_BRUTE), device=dev).expand(rows, N_BRUTE).contiguous()
+
+
+def bracket(lib: K6Lib, kind, tpl, cfg, x, mask, exposure):
+    """The fit's golden bracket: the brute grid's best phase +- one step."""
+    grid = brute_grid(x.device, x.shape[0])
+    phi0 = grid[0][torch.argmax(lib.nm(kind, tpl, x, mask, exposure, grid, cfg)[0], dim=1)]
+    step = 2 * np.pi / (N_BRUTE - 1)
+    return (phi0 - step).contiguous(), (phi0 + step).contiguous()
+
+
+def golden_part(new: K6Lib, arms: dict, kind, tpl, cfg, x, mask, exposure, reps: int, label: str) -> dict:
+    """The golden-section refine as the chain of one-phase launches and as
+    each arm's one launch (``arms``: {name: fn(lo, hi) -> its outputs}, the
+    first the staged launch), timed in turns and reversed, each held to the
+    chain in phi_best, ll_max and the vector and to the first arm in all
+    five outputs (module note)."""
     rows, n_ev = x.shape
     F = len(cfg.free_idx)
-    grid = torch.as_tensor(np.linspace(-np.pi, np.pi, N_BRUTE), device=x.device)
-    brute = new.nm(kind, tpl, x, mask, exposure, grid.expand(rows, N_BRUTE).contiguous(), cfg)[0]
-    phi0 = grid[torch.argmax(brute, dim=1)]
-    step = 2 * np.pi / (N_BRUTE - 1)
-    lo, hi = (phi0 - step).contiguous(), (phi0 + step).contiguous()
+    lo, hi = bracket(new, kind, tpl, cfg, x, mask, exposure)
 
     def at(phis, group):
         return new.nm(kind, tpl, x, mask, exposure, phis.contiguous(), cfg, group=group)
@@ -242,33 +427,81 @@ def golden_part(new: K6Lib, kind, tpl, cfg, x, mask, exposure, reps: int) -> dic
         phi, ll = optimize.golden_section(lambda p: at(p[:, None], 1)[0][:, 0], lo, hi, iters=cfg.refine_iters)
         return phi, ll, at(phi[:, None], 1)[1][:, 0]
 
-    arms = {"chain": chain}
-    if new.has_golden:
-        arms["one launch"] = lambda: new.golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+    fns = {"chain": chain, **{name: (lambda fn=fn: fn(lo, hi)) for name, fn in arms.items()}}
     want = chain()
-    out = {"rows": rows, "events": n_ev, "refine_iters": cfg.refine_iters, "bitwise_chain": {}}
-    for name, fn in arms.items():
-        got = fn()
+    first = next(iter(arms))
+    ref = fns[first]()
+    out = {"operands": label, "rows": rows, "events": n_ev, "refine_iters": cfg.refine_iters,
+           "bitwise_chain": {}, "bitwise_first": {}}
+    for name in arms:
+        got = fns[name]()
         out["bitwise_chain"][name] = all(torch.equal(a, b) for a, b in zip(got[:3], want))
-    out["ms"] = {name: [] for name in arms}
-    for name in list(arms) + list(reversed(arms)):
-        out["ms"][name].append(event_ms(arms[name], reps))
+        out["bitwise_first"][name] = all(torch.equal(a, b) for a, b in zip(got, ref))
+    out["ms"] = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        out["ms"][name].append(event_ms(fns[name], reps))
     out["launch_ms"] = {"P1 G1": event_ms(lambda: at(lo[:, None], 1), 4 * reps),
                         "P2 G2": event_ms(lambda: at(torch.stack([lo, hi], dim=1), 2), 4 * reps)}
     out["ms_per_round"] = {name: min(ms) / (1 + cfg.refine_iters) for name, ms in out["ms"].items()}
-    if new.has_golden:
-        got = new.golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
-        counts = costmodel.k6_golden_counts(rows, float(n_ev), tpl.n_comp, kind, F, cfg.refine_iters,
-                                            float(got[4].sum()), float(got[3].sum()))
-        out["bound_ms"] = bound_ms(counts)
-    print(f"golden refine ({rows} x {n_ev}, {F} free, {cfg.refine_iters} iterations): "
+    counts = costmodel.k6_golden_counts(rows, float(mask.sum()) / rows, tpl.n_comp, kind, F, cfg.refine_iters,
+                                        float(ref[4].sum()), float(ref[3].sum()))
+    out["bound_ms"] = bound_ms(counts)
+    print(f"golden refine, {label} ({rows} x {n_ev}, {F} free, {cfg.refine_iters} iterations): "
           + "; ".join(f"{name} " + " / ".join(f"{v:.3f}" for v in ms) + " ms" for name, ms in out["ms"].items())
           + "; a round " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["ms_per_round"].items())
           + "; one launch alone: " + ", ".join(f"{k} {v:.3f} ms" for k, v in out["launch_ms"].items())
-          + (f"; bound {out['bound_ms']:.4f} ms ({100 * out['bound_ms'] / min(out['ms']['one launch']):.2f}%)"
-             if "bound_ms" in out else "")
-          + "; bitwise the chain: " + ", ".join(f"{k} {v}" for k, v in out["bitwise_chain"].items()),
+          + f"; bound {out['bound_ms']:.4f} ms ({100 * out['bound_ms'] / min(out['ms'][first]):.2f}% of {first})"
+          + "; bitwise the chain: " + ", ".join(f"{k} {v}" for k, v in out["bitwise_chain"].items())
+          + f"; bitwise {first} in all five outputs: " + ", ".join(f"{k} {v}" for k, v in out["bitwise_first"].items()),
           flush=True)
+    return out
+
+
+def probe_summary(acc: np.ndarray, ms: float) -> dict:
+    """A probed launch's parts (module note): cycles a block, each timed
+    part's share of them, the counts, cycles a pass and a walk, and the SM
+    clock the slowest block gives over the launch's ms (one wave)."""
+    tot = acc.sum(axis=0).astype(float)
+    n = acc.shape[0]
+    k = {name: i for i, name in enumerate(PROBE_PARTS)}
+    timed = [p for p in PROBE_PARTS if p not in PROBE_COUNTS and p != "block"]
+    out = {"blocks": n, "launch_ms": ms, "cycles_a_block": tot[k["block"]] / n,
+           "ghz": float(acc[:, k["block"]].max()) / (ms * 1e6),
+           "counts_a_block": {c: tot[k[c]] / n for c in PROBE_COUNTS},
+           "share": {p: tot[k[p]] / tot[k["block"]] for p in timed},
+           "cycles_a_pass": {p: tot[k[p]] / max(tot[k["passes"]], 1.0) for p in timed},
+           "cycles_a_walk": {p: tot[k[p]] / max(tot[k["walks"]], 1.0) for p in PROBE_PARTS[:7]}}
+    out["share"]["rest"] = 1.0 - sum(out["share"].values())
+    return out
+
+
+def probe_part(libs: dict, kind, tpl, cfg, x, mask, exposure, lo, hi, reps: int) -> dict:
+    """Each probe build's golden launch on the north star's rows (a staged
+    source staged and at n_stage 0) and nm_kernel<4> at 84 x 128."""
+    rows = x.shape[0]
+    grid = brute_grid(x.device, rows)
+    out = {}
+    for tag, lib in libs.items():
+        runs = {"golden": lambda: lib.golden(kind, tpl, x, mask, exposure, lo, hi, cfg)}
+        if lib.staged:
+            runs["golden n_stage 0"] = lambda: lib.golden(kind, tpl, x, mask, exposure, lo, hi, cfg, stage=0)
+        runs["nm<4> 84 x 128"] = lambda: lib.nm(kind, tpl, x, mask, exposure, grid, cfg, group=4)
+        for name, fn in runs.items():
+            blocks = rows * (N_BRUTE // 4) if name.startswith("nm") else rows
+            ms = event_ms(fn, reps)
+            res = out.setdefault(tag, {})[name] = probe_summary(lib.probed(fn, blocks), ms)
+            c = res["counts_a_block"]
+            print(f"probe {tag} {name}: {ms:.3f} ms, {res['cycles_a_block']:.6g} cycles a block "
+                  f"({res['ghz']:.3f} GHz by the slowest block over the launch), {c['rounds']:.0f} rounds, "
+                  f"{c['passes']:.1f} passes, {c['walks']:.1f} walks, {c['vertices'] / max(c['walks'], 1):.3f} "
+                  "vertices a walk; shares " + ", ".join(f"{p} {100 * v:.2f}%" for p, v in res["share"].items())
+                  + "; cycles a pass " + ", ".join(f"{p} {v:.0f}" for p, v in res["cycles_a_pass"].items()),
+                  flush=True)
+        if "golden n_stage 0" in out[tag]:
+            a, b = (out[tag][n]["cycles_a_walk"]["event loop"] for n in ("golden n_stage 0", "golden"))
+            out[tag]["pair_share_of_event_loop"] = (a - b) / a
+            print(f"probe {tag}: the staged pair takes {100 * (a - b) / a:.2f}% off the golden event loop "
+                  f"({a:.0f} -> {b:.0f} cycles a walk)", flush=True)
     return out
 
 
@@ -278,7 +511,11 @@ def main(argv=None) -> int:
     parser.add_argument("--source", default=None, help="a toafit_general.cu to take for the repository's")
     parser.add_argument("--out", default=None, help="write the results as JSON here")
     parser.add_argument("--reps", type=int, default=3)
+    parser.add_argument("--probe", action="store_true", help="attribute a golden round with clock64() stamps")
+    parser.add_argument("--stage-u", nargs="*", default=[], metavar="U1,U2,U4",
+                        help="time the staged golden loop at these U (events a thread a step at 1, 2, 4 vertices)")
     args = parser.parse_args(argv)
+    stage_us = [tuple(int(v) for v in u.split(",")) for u in args.stage_u]
     if not torch.cuda.is_available():
         raise SystemExit("k6_ab needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -286,20 +523,34 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     res = {"card": card, "time": time.time()}
     src = args.source or str(z2_grid.SOURCES["toafit_general"])
-    sources = {"new": src, "new_count": counting_build("new", src)}
+    sources = {"new": src, "new_count": derived("new", src, counting_source)}
     if args.parent:
         sources["parent"] = args.parent
-        sources["parent_count"] = counting_build("parent", args.parent)
+        sources["parent_count"] = derived("parent", args.parent, counting_source)
+    if args.probe:
+        sources.update({f"{tag}_probe": derived(tag, path, probe_source, "probe")
+                        for tag, path in (("new", src), ("parent", args.parent)) if path})
+    variant_names = {"u" + "".join(map(str, u)): "U " + "/".join(map(str, u)) for u in stage_us}
+    for u in stage_us:
+        tag = "u" + "".join(map(str, u))
+        sources[tag] = derived(tag, src, lambda text, u=u: stage_u_source(text, u), "stage_u")
     built = build(sources)
     new_path, new_log = built["new"]
     res["source"] = src
     res["build"] = {"new": ptxas(new_log)}
     if args.parent:
         res["build"]["parent"] = ptxas(built["parent"][1])
+    for tag, name in variant_names.items():
+        res["build"][name] = {k: v for k, v in ptxas(built[tag][1]).items() if "golden_kernel" in k}
     for which, entries in res["build"].items():
         for name, e in entries.items():
             print(f"ptxas {which} {name}: {e['registers']} registers, {e['stack']} B stack, {e['spill']} B spill",
                   flush=True)
+    if args.parent:
+        res["same_sass_as_parent"] = same_sass(new_path, built["parent"][0])
+        print("SASS of the new build against the parent's, instruction for instruction: "
+              + ", ".join(f"{k} {'same' if v else 'DIFFERENT'}" for k, v in res["same_sass_as_parent"].items()),
+              flush=True)
     res["sass"] = {which: sass_report(built[f"{which}_count"][0]) for which in ("new", "parent")
                    if f"{which}_count" in built}
     for which, kernels in res["sass"].items():
@@ -366,13 +617,33 @@ def main(argv=None) -> int:
               + ("; by G: " + ", ".join(f"{g}: {v['ms']:.3f} ms{'' if v['bitwise_default'] else ' NOT bitwise'}"
                                         for g, v in row["by_group"].items()) if "by_group" in row else ""),
               flush=True)
-    res["golden"] = golden_part(new, kind, tpl, cfg, x, mask, exposure, max(1, args.reps // 2))
+    variants = {name: K6Lib(built[tag][0]) for tag, name in variant_names.items()}
+
+    def arms(ops):
+        a = {"staged" if new.staged else "one launch": lambda lo, hi: new.golden(kind, tpl, *ops, lo, hi, cfg)}
+        if new.staged:
+            a["n_stage 0"] = lambda lo, hi: new.golden(kind, tpl, *ops, lo, hi, cfg, stage=0)
+        if old is not None:
+            a["parent"] = lambda lo, hi: old.golden(kind, tpl, *ops, lo, hi, cfg)
+        for name, lib in variants.items():
+            a[name] = lambda lo, hi, lib=lib: lib.golden(kind, tpl, *ops, lo, hi, cfg)
+        return a
+
+    ns = north_star_operands(dev)
+    reps = max(1, args.reps // 2)
+    res["golden"] = {label: golden_part(new, arms(ops), kind, tpl, cfg, *ops, reps, label)
+                     for label, ops in (("uniform rows", (x, mask, exposure)), ("north-star rows", ns))}
+    if args.probe:
+        lo, hi = bracket(new, kind, tpl, cfg, *ns)
+        res["probe"] = probe_part({tag: K6Lib(built[f"{tag}_probe"][0]) for tag in ("new", "parent")
+                                   if f"{tag}_probe" in built}, kind, tpl, cfg, *ns, lo, hi, reps)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(res, fh, indent=1)
-    if not all(res["golden"]["bitwise_chain"].values()):
-        print("golden refine: NOT bitwise the chain", flush=True)
+    if not all(v for g in res["golden"].values() for key in ("bitwise_chain", "bitwise_first")
+               for v in g[key].values()):
+        print("golden refine: NOT bitwise the chain or the staged launch", flush=True)
         return 1
     bad = [r["phis"] for r in res["launches"] if not (r["bitwise_twin"] or args.source)
            or not r.get("bitwise_parent", True)

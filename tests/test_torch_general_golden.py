@@ -165,15 +165,15 @@ def _c_params(src: str, name: str) -> list:
 class TestCInterface:
     def test_signature_is_what_the_wrapper_binds(self):
         params = _c_params(SRC.read_text(), "toafit_general_golden")
-        assert len(params) == len(general_sweep.GOLDEN_ARGTYPES) == 23
+        assert len(params) == len(general_sweep.GOLDEN_ARGTYPES) == 24
         for p, t in zip(params, general_sweep.GOLDEN_ARGTYPES):
             want = (general_sweep.ctypes.c_void_p if "*" in p else general_sweep.ctypes.c_longlong
                     if p.startswith("long long") else general_sweep.ctypes.c_int)
             assert t is want, p
         names = [p.split()[-1].lstrip("*") for p in params]
         assert names[:10] == ["x", "mask", "exposure", "lo_phi", "hi_phi", "base", "free_idx", "lo", "span", "u0"]
-        assert names[10:17] == ["n_rows", "n_events", "n_comp", "kind", "n_free", "iters", "refine_iters"]
-        assert names[17:] == ["phi_best", "ll_max", "vec", "shrinks", "reads", "stream"]
+        assert names[10:18] == ["n_rows", "n_events", "n_comp", "kind", "n_free", "iters", "refine_iters", "n_stage"]
+        assert names[18:] == ["phi_best", "ll_max", "vec", "shrinks", "reads", "stream"]
 
     def test_phi_is_optimize_phi(self):
         hexes = dict(re.findall(r"constexpr double (\w+) = (0x[0-9a-fp.+-]+);", SRC.read_text()))

@@ -445,7 +445,7 @@ class TestFullFit:
 def _c_functions(src: str) -> dict:
     """extern "C" function name -> parameter count."""
     out = {}
-    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+    for m in re.finditer(r'extern "C" (?:int|long long) (\w+)\(([^)]*)\)', src):
         params = [p for p in m.group(2).split(",") if p.strip()]
         out[m.group(1)] = len(params)
     return out
@@ -472,7 +472,8 @@ class TestCInterface:
         lib = general_sweep._lib()
         funcs = _c_functions(SRC.read_text())
         assert set(lib.symbols) == set(funcs) == {"toafit_general_nm", "toafit_general_eval",
-                                                  "toafit_general_max_group", "toafit_general_golden"}
+                                                  "toafit_general_max_group", "toafit_general_golden",
+                                                  "toafit_general_golden_room"}
         for name, sym in lib.symbols.items():
             assert len(sym.argtypes) == funcs[name], name
 

@@ -51,7 +51,10 @@ the refit vector and its counts, for every family at 25 and 3 iterations
 on ragged rows and for a NaN row, a row alone its batch row; a fit must
 launch it once and equal the fit through the chain bit for bit; what it
 cannot take and a refused launch raise KernelError, with no chain or twin
-run in its place. On two or more cards, the
+run in its place; its first harmonic pairs staged in shared memory move no
+bit: the planned stage, a stage short of the rows, n_stage 0 and the whole
+row give the chain's bits for every family, and a stage the entry cannot
+take raises KernelError. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
@@ -1260,6 +1263,59 @@ class TestGeneralGoldenKernel:
         assert general_sweep.LAUNCHES["general_sweep"] == one["general_sweep"] + 2 + 2 * cfg.refine_iters + 1
         for key in fit:
             assert torch.equal(fit[key], chained[key]), key
+
+
+@pytest.mark.gpu
+class TestGeneralGoldenStage:
+    """The golden launch's staged first harmonic pairs move no bit: the
+    planned stage, a stage short of the rows (their tails compute the pair),
+    n_stage 0 and the whole row give the same five outputs, the chain's, for
+    every family (von Mises and Cauchy stage nothing); a stage the entry
+    cannot take raises KernelError."""
+
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_stage_moves_no_bit_on_either_side(self, cuda_device, kind):
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands(kind, cuda_device, n_max=16000)
+        cfg = cfg._replace(refine_iters=4)
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        N, F = x.shape[1], len(cfg.free_idx)
+        planned = general_sweep.golden_stage_events(F, N, general_sweep._lib().toafit_general_golden_room())
+        assert 0 < planned < int(mask.sum(dim=1).min())  # every row has a computed tail
+        got = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        (phi, ll, vec), shrinks, reads = _golden_chain(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(got, (phi, ll, vec, shrinks.int(), reads.int())))
+        for stage in (0, general_sweep.STAGE_STEP, planned):
+            again = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, stage=stage)
+            assert all(torch.equal(a, b) for a, b in zip(again, got)), stage
+
+    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
+    def test_whole_row_stage_and_none_are_the_same(self, cuda_device, kind):
+        from crimp_tpu_torch.ops import general_sweep
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands(kind, cuda_device)
+        cfg = cfg._replace(refine_iters=6)
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        whole = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, stage=x.shape[1])
+        none = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, stage=0)
+        planned = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
+        assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(whole, none, planned))
+
+    def test_stages_the_entry_cannot_take_raise(self, cuda_device):
+        from crimp_tpu_torch.ops import general_sweep
+        from crimp_tpu_torch.resilience import KernelError
+
+        tpl, x, mask, exposure, phis, cfg = _rv_operands("fourier", cuda_device, n_max=40000)
+        lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
+        N = x.shape[1]
+        room = general_sweep._lib().toafit_general_golden_room()
+        assert general_sweep.golden_stage_events(len(cfg.free_idx), N, room) < N  # 40 000 events do not fit
+        general_sweep.reset_launches()
+        for stage in (N, general_sweep.STAGE_STEP + 1, N + general_sweep.STAGE_STEP, -general_sweep.STAGE_STEP):
+            with pytest.raises(KernelError, match="toafit_general_golden"):
+                general_sweep._launch_golden("fourier", tpl, x, mask, exposure, lo, hi, cfg, stage=stage)
+        assert general_sweep.LAUNCHES["general_golden"] == 0
 
 
 @pytest.mark.gpu
