@@ -1,0 +1,7 @@
+"""Share of the campaign window in which no operation ran on the card."""
+
+from portbench import readers
+
+
+def read(ctx):
+    return readers.idle_pct(ctx)
