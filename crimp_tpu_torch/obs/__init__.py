@@ -22,8 +22,9 @@ Port of ``crimp_tpu/obs``:
   performance ledger, ``obs ledger add|show|check``.
 
 Disabled (``CRIMP_TORCH_OBS`` unset/off, the default) every hook is a
-strict no-op: :func:`span` returns a shared singleton and
-:func:`counter_add` returns after one global ``None`` check.
+strict no-op: :func:`span` returns a shared singleton (a profiler range
+while ``torch.profiler`` records) and :func:`counter_add` returns after one
+global ``None`` check.
 """
 
 from crimp_tpu_torch.obs.core import (  # noqa: F401
@@ -37,6 +38,7 @@ from crimp_tpu_torch.obs.core import (  # noqa: F401
     gauge_set,
     last_manifest_path,
     mark_degraded,
+    profiler_range,
     record_cost,
     record_device_span,
     record_numeric_mode,

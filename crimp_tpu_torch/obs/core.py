@@ -5,8 +5,17 @@ keep the JAX package's schema (``OBS_SCHEMA``), so one reporter reads both.
 
 - **Disabled is free.** With ``CRIMP_TORCH_OBS`` off there is no active
   :class:`RunRecorder`; :func:`span` returns the shared :data:`NULL_SPAN`
-  singleton and :func:`counter_add`/:func:`gauge_set`/:func:`record_span`
-  return after a single module-global ``None`` check.
+  singleton after a module-global ``None`` check and one check of the
+  profiler's flag, and :func:`counter_add`/:func:`gauge_set`/:func:`record_span`
+  return after the ``None`` check alone.
+- **Profiler ranges.** While ``torch.profiler`` records, every span (and
+  every kernel span, ``costmodel.kernel_span``) is also a range of the
+  profiler's timeline under the span's name, run or no run
+  (:func:`profiler_range`), so a device trace names the host work around
+  each idle gap on the trace's own clock. The range is the profiler's
+  light record (``_RecordFunctionFast``): ``record_function`` would also
+  put a copy of each range on the device's timeline, covering the range's
+  first to last kernel, which a trace reader would count as device work.
 - **Thread-safe.** Registry mutation happens under one re-entrant lock and
   span parentage is tracked per thread.
 - **Crash-durable.** With events on, every span open/close, counter, gauge
@@ -14,9 +23,11 @@ keep the JAX package's schema (``OBS_SCHEMA``), so one reporter reads both.
   is written atomically (tmp + rename) at run end.
 - **Device time in spans.** When a run is active and the card is already
   initialized, a span synchronizes the card as it opens and closes, so its
-  duration covers the device work queued inside it. Disabled, nothing
-  synchronizes. Telemetry never initializes the card: identity and memory
-  statistics come only from a card some other code already brought up.
+  duration covers the device work queued inside it; not while the profiler
+  records, whose trace must show the idle time an unprofiled run has.
+  Disabled, nothing synchronizes. Telemetry never initializes the card:
+  identity and memory statistics come only from a card some other code
+  already brought up.
 - **Kernel spans in device time.** ``utils/profiling.timed`` brackets a
   kernel call on the card with two CUDA events and hands them over with
   :func:`record_device_span`; the span's duration is the events' elapsed
@@ -70,6 +81,38 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+# the profiler's flag, read once a span: true while torch.profiler records
+_profiler_on = torch.autograd._profiler_enabled
+# the profiler's light range: a host event alone, no copy on the device's timeline
+_record_function = torch._C._profiler._RecordFunctionFast
+
+
+class _Range:
+    """A profiler range alone (no clock, no synchronize, no attributes
+    kept): a span while the profiler records and no run is active."""
+
+    __slots__ = ("_rf",)
+
+    def __init__(self, name: str):
+        self._rf = _record_function(name)
+
+    def __enter__(self):
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+def profiler_range(name: str):
+    """A profiler range named ``name`` while ``torch.profiler`` records, the
+    shared no-op :data:`NULL_SPAN` otherwise."""
+    return _Range(name) if _profiler_on() else NULL_SPAN
 
 
 def _host_identity() -> tuple[int, int]:
@@ -127,10 +170,12 @@ class Span:
     opened before the parent closes still point at a real index.
     """
 
-    __slots__ = ("_rec", "_row", "_t0", "index")
+    __slots__ = ("_rec", "_row", "_t0", "_range", "index")
 
     def __init__(self, rec: "RunRecorder", name: str, kind: str, attrs: dict):
-        _sync()
+        self._range = profiler_range(name)
+        if self._range is NULL_SPAN:
+            _sync()
         stack = _stack()
         parent = stack[-1] if stack else 0
         self._rec = rec
@@ -154,6 +199,7 @@ class Span:
         stack.append(self.index)
         rec._emit({"ev": "span_open", "i": self.index,
                    **{k: self._row[k] for k in ("name", "kind", "t0_s", "parent", "thread")}})
+        self._range.__enter__()
 
     def set(self, **attrs):
         """Attach attributes to the span while it is open."""
@@ -164,8 +210,10 @@ class Span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        self._range.__exit__(exc_type, exc, tb)
         if exc_type is None:
-            _sync()
+            if self._range is NULL_SPAN:
+                _sync()
             self._rec._resolve_device_spans()
         dur = time.perf_counter() - self._t0
         stack = _stack()
@@ -465,10 +513,11 @@ def run(name: str, **attrs):
 
 
 def span(name: str, kind: str = "stage", **attrs):
-    """A hierarchical span context; the shared no-op when no run is active."""
+    """A hierarchical span context; with no run active, a profiler range
+    while the profiler records and the shared no-op otherwise."""
     rec = _RUN
     if rec is None:
-        return NULL_SPAN
+        return profiler_range(name)
     return Span(rec, name, kind, attrs)
 
 

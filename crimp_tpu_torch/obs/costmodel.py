@@ -26,7 +26,8 @@ Contracts, as in the JAX package:
 
 - **Disabled is free.** With no active obs run :func:`capture` returns
   after one check; ``CRIMP_TORCH_OBS_COST=0`` disables capture while obs
-  stays on (malformed raises). :func:`kernel_span` is a no-op without a run.
+  stays on (malformed raises). :func:`kernel_span` is a no-op without a run
+  (a profiler range while ``torch.profiler`` records).
 - **Repeat shapes cost nothing.** Rows are cached per fingerprint (kernel,
   platform, argument shapes/dtypes/statics, numeric-mode knobs): in
   process first, then under ``cost|`` keys of the autotune cache file.
@@ -60,10 +61,12 @@ def cost_capture_on() -> bool:
 @contextlib.contextmanager
 def kernel_span(name: str):
     """The kernel span of a capture site: ``utils/profiling.timed(name)``
-    (device time from CUDA events on the card) inside an active run, free
-    otherwise."""
+    (device time from CUDA events on the card) inside an active run; with
+    no run, a profiler range under the site's name while ``torch.profiler``
+    records, free otherwise."""
     if obs_core.active() is None:
-        yield
+        with obs_core.profiler_range(name):
+            yield
         return
     from crimp_tpu_torch.utils import profiling
 

@@ -34,6 +34,7 @@ import torch
 
 from crimp_tpu_torch import obs
 from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.obs import names as spans
 from crimp_tpu_torch.models import timing
 from crimp_tpu_torch.models.timing import N_FREQ_TERMS, TimingParams
 from crimp_tpu_torch.utils.device import resolve_device
@@ -308,43 +309,51 @@ def fold_segments(timMod, seg_times, t_ref_mjd=None, device=None, delta_fold: in
     CRIMP_TORCH_DELTA_FOLD_BUDGET (``deltafold.resolve_delta_fold``). Off,
     the engine is never consulted.
     """
-    seg_times = [np.atleast_1d(np.asarray(t, dtype=np.float64)) for t in seg_times]
-    if t_ref_mjd is None:
-        t_ref = np.asarray(
-            [(t[-1] - t[0]) / 2 + t[0] if t.size else 0.0 for t in seg_times]
-        )
-    else:
-        t_ref = np.atleast_1d(np.asarray(t_ref_mjd, dtype=np.float64))
-    if not seg_times:
-        return [], t_ref
-    dev = resolve_device(device)
-    tm = timing.resolve(timMod)
-    sizes = [t.size for t in seg_times]
-    anchor_idx = np.repeat(np.arange(len(seg_times)), sizes)
-    times_cat = np.concatenate(seg_times)
-    obs.counter_add("events_folded", int(times_cat.size))
-    obs.counter_add("fold_segments", len(seg_times))
-    delta = anchor_deltas(times_cat, t_ref, anchor_idx)
+    with obs.span(spans.FOLD):
+        with obs.profiler_range(spans.FOLD_ANCHORS):
+            seg_times = [np.atleast_1d(np.asarray(t, dtype=np.float64)) for t in seg_times]
+            if t_ref_mjd is None:
+                t_ref = np.asarray(
+                    [(t[-1] - t[0]) / 2 + t[0] if t.size else 0.0 for t in seg_times]
+                )
+            else:
+                t_ref = np.atleast_1d(np.asarray(t_ref_mjd, dtype=np.float64))
+            if not seg_times:
+                return [], t_ref
+            dev = resolve_device(device)
+            tm = timing.resolve(timMod)
+            sizes = [t.size for t in seg_times]
+            anchor_idx = np.repeat(np.arange(len(seg_times)), sizes)
+            times_cat = np.concatenate(seg_times)
+            obs.counter_add("events_folded", int(times_cat.size))
+            obs.counter_add("fold_segments", len(seg_times))
+            delta = anchor_deltas(times_cat, t_ref, anchor_idx)
+            from crimp_tpu_torch.ops import deltafold
 
-    def exact():
-        am = prepare_anchors(tm, t_ref).to(dev)
-        delta_dev = torch.as_tensor(delta, device=dev)
-        idx_dev = torch.as_tensor(anchor_idx, device=dev)
-        with costmodel.kernel_span("anchored_fold"):
-            out = anchored_fold(am, delta_dev, idx_dev)
-        costmodel.capture("anchored_fold", None, am, delta_dev, idx_dev, out=out)
-        return out.cpu().numpy()
+            delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget, n_events=int(times_cat.size),
+                                                              device=dev)
 
-    from crimp_tpu_torch.ops import deltafold
+        def exact():
+            with obs.profiler_range(spans.FOLD_ANCHORS):
+                am = prepare_anchors(tm, t_ref)
+            with obs.profiler_range(spans.FOLD_TO_CARD):
+                am = am.to(dev)
+                delta_dev = torch.as_tensor(delta, device=dev)
+                idx_dev = torch.as_tensor(anchor_idx, device=dev)
+            with costmodel.kernel_span("anchored_fold"):
+                out = anchored_fold(am, delta_dev, idx_dev)
+            costmodel.capture("anchored_fold", None, am, delta_dev, idx_dev, out=out)
+            with obs.profiler_range(spans.FOLD_TO_HOST):
+                return out.cpu().numpy()
 
-    delta_fold, budget = deltafold.resolve_delta_fold(delta_fold, budget, n_events=int(times_cat.size), device=dev)
-    if delta_fold:
-        folded, _ = deltafold.cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact,
-                                          budget=budget, tag=cache_tag, fold_cache=fold_cache,
-                                          device=dev)
-    else:
-        folded = exact()
-    return list(np.split(folded, np.cumsum(sizes)[:-1])), t_ref
+        if delta_fold:
+            folded, _ = deltafold.cached_fold(tm, times_cat, sizes, t_ref, delta, anchor_idx, exact,
+                                              budget=budget, tag=cache_tag, fold_cache=fold_cache,
+                                              device=dev)
+        else:
+            folded = exact()
+        with obs.profiler_range(spans.FOLD_TO_HOST):
+            return list(np.split(folded, np.cumsum(sizes)[:-1])), t_ref
 
 
 def fold_chunked(times_mjd, timMod, chunk_days: float = 30.0, device=None):

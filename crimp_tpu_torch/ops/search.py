@@ -48,6 +48,7 @@ import torch
 
 from crimp_tpu_torch import knobs, obs, resilience
 from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.obs import names as spans
 from crimp_tpu_torch.ops import autotune, fasttrig, reduce, z2_general, z2_grid
 from crimp_tpu_torch.resilience import faultinject
 from crimp_tpu_torch.utils import profiling
@@ -285,13 +286,14 @@ def _k2_grid_sums(t, f0: float, df: float, n_freq: int, fdots, fddots, nharm: in
     under the family ``plan`` when not given; ``tile0`` offsets the grid by
     whole trial tiles. The launch and the copy of its tiles into the f64
     frequency layout are the kernel span of cost row ``site``."""
-    half, sixth = row_coeffs(fdots, fddots, t.device)
-    n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
-    n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
-    if per_split is None:
-        per_split, _ = autotune.resolve_blocks(plan, t.shape[0], int(n_freq) * n_rows, poly,
-                                               n_rows=n_rows, nharm=nharm, device=t.device)
-    w = as_weights(weights, t.device)
+    with obs.profiler_range(spans.SCAN_PLAN):
+        half, sixth = row_coeffs(fdots, fddots, t.device)
+        n_rows = half.shape[0] * (1 if sixth is None else sixth.shape[0])
+        n_tiles = -(-int(n_freq) // z2_grid.TRIAL_TILE)
+        if per_split is None:
+            per_split, _ = autotune.resolve_blocks(plan, t.shape[0], int(n_freq) * n_rows, poly,
+                                                   n_rows=n_rows, nharm=nharm, device=t.device)
+        w = as_weights(weights, t.device)
     with costmodel.kernel_span(site):
         cs = z2_grid.z2_tile_sums(t, f0, df, half, n_tiles, nharm, sixth_fddots=sixth, weights=w,
                                   poly=poly, per_split=per_split, tile0=tile0)
@@ -329,14 +331,16 @@ def _grid3d_sums_dispatch(times, f0: float, df: float, n_freq: int, fdots, fddot
     taken down the ladder: it propagates."""
     if nharm < 1:
         raise ValueError(f"nharm must be >= 1, got {nharm}")
-    t = as_f64(times, resolve_device(device))
-    poly = fasttrig.poly_trig_enabled(poly, t.device)
-    n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
-    cube = fddots is not None
-    use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16, t.shape[0],
-                                        int(n_freq) * (n_rows if cube else 1), poly, cube, device=t.device)
-    site = "grid_sums_3d" if cube else ("grid_sums" if ladder else "grid_sums_2d")
-    obs.counter_add("grid_trials", int(n_freq) * n_rows)
+    with obs.profiler_range(spans.SCAN_TO_CARD):
+        t = as_f64(times, resolve_device(device))
+    with obs.profiler_range(spans.SCAN_PLAN):
+        poly = fasttrig.poly_trig_enabled(poly, t.device)
+        n_rows = len(np.atleast_1d(fdots)) * (1 if fddots is None else len(np.atleast_1d(fddots)))
+        cube = fddots is not None
+        use_mxu, rs, b16 = resolve_grid_mxu(mxu, reseed, mxu_bf16, t.shape[0],
+                                            int(n_freq) * (n_rows if cube else 1), poly, cube, device=t.device)
+        site = "grid_sums_3d" if cube else ("grid_sums" if ladder else "grid_sums_2d")
+        obs.counter_add("grid_trials", int(n_freq) * n_rows)
     if use_mxu:
         try:
             if ladder:
@@ -878,12 +882,13 @@ def h_power_segments(times, masks, freqs, nharm: int = 5, device=None) -> torch.
     """H-test power per segment at its own frequency: times (S, N) pre-centered
     seconds (padded), masks (S, N) validity, freqs (S,). Backs the per-ToA
     H-test of the ToA pipeline. Returns (S,) f64."""
-    dev = resolve_device(device)
-    t = torch.as_tensor(np.asarray(times, dtype=np.float64)).to(dev)
-    m = torch.as_tensor(np.asarray(masks)).to(dev).to(torch.float64)
-    f = torch.as_tensor(np.asarray(freqs, dtype=np.float64)).to(dev)
-    c, s = _harmonic_sums_cycles(f[:, None] * t, m, nharm)  # (nharm, S)
-    return h_from_sums(c, s, torch.sum(m, dim=-1), dim=0)
+    with obs.profiler_range(spans.HTEST_SUMS):
+        dev = resolve_device(device)
+        t = torch.as_tensor(np.asarray(times, dtype=np.float64)).to(dev)
+        m = torch.as_tensor(np.asarray(masks)).to(dev).to(torch.float64)
+        f = torch.as_tensor(np.asarray(freqs, dtype=np.float64)).to(dev)
+        c, s = _harmonic_sums_cycles(f[:, None] * t, m, nharm)  # (nharm, S)
+        return h_from_sums(c, s, torch.sum(m, dim=-1), dim=0)
 
 
 def h_power_segments_chunked(times, masks, freqs, nharm: int = 5, row_block: int | None = None,
@@ -993,26 +998,30 @@ class PeriodSearch:
         Returns (array of rows [freq, log10_fdot, z2], column dict) with the
         reference's row ordering: outer loop fdot, inner loop freq.
         """
-        log_fdots = np.asarray(freq_dot, dtype=np.float64)
-        signed = -(10.0**log_fdots)
-        mesh = self._mesh(len(self.time) * len(self.freq) * len(signed))
-        grid = self._grid()
-        if mesh is not None:
-            from crimp_tpu_torch.parallel import mesh as pmesh
+        with obs.span(spans.SCAN):
+            with obs.profiler_range(spans.SCAN_PLAN):
+                log_fdots = np.asarray(freq_dot, dtype=np.float64)
+                signed = -(10.0**log_fdots)
+                mesh = self._mesh(len(self.time) * len(self.freq) * len(signed))
+                grid = self._grid()
+                centered = self._centered()
+            if mesh is not None:
+                from crimp_tpu_torch.parallel import mesh as pmesh
 
-            power = pmesh.z2_2d_sharded(self._centered(), self.freq, signed, self.nbrHarm, mesh,
-                                        **self._sharded_kw())
-        elif grid is not None:
-            power = z2_power_2d_grid(self._centered(), *grid, len(self.freq), signed, self.nbrHarm,
-                                     **self._kw()).cpu().numpy()
-        else:
-            power = z2_power_2d(self._centered(), self.freq, signed, self.nbrHarm, **self._kw()).cpu().numpy()
-        rows = np.column_stack([
-            np.tile(self.freq, len(log_fdots)),
-            np.repeat(log_fdots, len(self.freq)),
-            power.reshape(-1),
-        ])
-        table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Z2pow": rows[:, 2]}
+                power = pmesh.z2_2d_sharded(centered, self.freq, signed, self.nbrHarm, mesh, **self._sharded_kw())
+            elif grid is not None:
+                power = z2_power_2d_grid(centered, *grid, len(self.freq), signed, self.nbrHarm, **self._kw())
+            else:
+                power = z2_power_2d(centered, self.freq, signed, self.nbrHarm, **self._kw())
+            with obs.profiler_range(spans.SCAN_ROWS):
+                if isinstance(power, torch.Tensor):
+                    power = power.cpu().numpy()
+                rows = np.column_stack([
+                    np.tile(self.freq, len(log_fdots)),
+                    np.repeat(log_fdots, len(self.freq)),
+                    power.reshape(-1),
+                ])
+                table = {"Freq": rows[:, 0], "Freq_dot": rows[:, 1], "Z2pow": rows[:, 2]}
         return rows, table
 
     def _threed_rows(self, log_fdots, fdd, power):

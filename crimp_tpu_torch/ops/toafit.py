@@ -75,6 +75,7 @@ import torch
 from crimp_tpu_torch import obs, resilience
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES, ProfileParams
 from crimp_tpu_torch.obs import costmodel
+from crimp_tpu_torch.obs import names as spans
 from crimp_tpu_torch.ops.optimize import golden_section
 from crimp_tpu_torch.ops import general_sweep, reduce
 from crimp_tpu_torch.utils import profiling
@@ -819,7 +820,10 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     )
     card = _on_card(x)
     # K5's phase-independent operands, once for every sweep of the fit
-    events = sweep_events(kind, tpl, x, cfg) if card and not cfg.free_idx else None
+    events = None
+    if card and not cfg.free_idx:
+        with obs.profiler_range(spans.FIT_EVENTS):
+            events = sweep_events(kind, tpl, x, cfg)
     chunk = cfg.n_brute if card else max(1, min(cfg.brute_chunk, cfg.n_brute))
     pad = (-cfg.n_brute) % chunk
     phis_pad = torch.cat([brute_phis, brute_phis[-1:].expand(pad)]) if pad else brute_phis
@@ -887,16 +891,18 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     # 4) likelihood-profile error bounds (general mode: each step's
     #    Nelder-Mead starts from the best-fit vector)
     warm = vec_best if cfg.free_idx else None
-    err_lo, err_hi, scan_iters = _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm,
-                                             events)
+    with obs.profiler_range(spans.FIT_ERROR_SCAN):
+        err_lo, err_hi, scan_iters = _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm,
+                                                 events)
 
     # 5) binned-profile goodness of fit (general mode: the model at the
     #    refit shape, ampShift folded into the template)
-    if cfg.free_idx:
-        red_chi2 = _binned_chi2(kind, _unflatten_tpl(vec_best, tpl), x, mask, exposure, phi_best,
-                                vec_best[:, 0], torch.ones_like(a_best), cfg)
-    else:
-        red_chi2 = _binned_chi2(kind, tpl, x, mask, exposure, phi_best, a_best, b_best, cfg)
+    with obs.profiler_range(spans.FIT_CHI2):
+        if cfg.free_idx:
+            red_chi2 = _binned_chi2(kind, _unflatten_tpl(vec_best, tpl), x, mask, exposure, phi_best,
+                                    vec_best[:, 0], torch.ones_like(a_best), cfg)
+        else:
+            red_chi2 = _binned_chi2(kind, tpl, x, mask, exposure, phi_best, a_best, b_best, cfg)
 
     return {
         "phShift": phi_best,
@@ -919,11 +925,13 @@ def fit_toas_batch(kind: str, tpl: ProfileParams, phases, masks, exposures,
     """The whole ToA batch in one call: phases/masks (S, Nmax) padded,
     exposures (S,). Returns a dict of tensors on ``device`` (default cuda)."""
     dev = resolve_device(device)
-    x = torch.as_tensor(phases, dtype=_F64).to(dev)
-    mask = torch.as_tensor(masks, dtype=torch.bool).to(dev)
-    exposure = torch.as_tensor(exposures, dtype=_F64).to(dev)
-    with torch.no_grad():
-        return fit_segment(kind, tpl.to(dev), x, mask, exposure, cfg)
+    with obs.span(spans.FIT), torch.no_grad():
+        with obs.profiler_range(spans.FIT_TO_CARD):
+            x = torch.as_tensor(phases, dtype=_F64).to(dev)
+            mask = torch.as_tensor(masks, dtype=torch.bool).to(dev)
+            exposure = torch.as_tensor(exposures, dtype=_F64).to(dev)
+            tpl = tpl.to(dev)
+        return fit_segment(kind, tpl, x, mask, exposure, cfg)
 
 
 def resolve_runtime_cfg(cfg: ToAFitConfig, n_segments: int = 1, n_events: int = 1, device=None) -> ToAFitConfig:
@@ -964,19 +972,21 @@ def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
     n_seg = phases.shape[0]
     if n_seg == 0:
         return {}
-    obs.counter_add("toas_fit", n_seg)
-    masks, exposures = np.asarray(masks, dtype=bool), np.asarray(exposures, dtype=float)
-    dev = resolve_device(device)
-    cfg = resolve_runtime_cfg(cfg, n_seg, phases.shape[1], device=dev)
-    if mesh is None and pmesh.sharding_enabled():
-        local = [d for d in pmesh.available_devices() if d.type == dev.type]
-        if len(local) >= 2:
-            mesh = pmesh.segment_mesh(local)
+    with obs.profiler_range(spans.FIT_PLAN):
+        obs.counter_add("toas_fit", n_seg)
+        masks, exposures = np.asarray(masks, dtype=bool), np.asarray(exposures, dtype=float)
+        dev = resolve_device(device)
+        cfg = resolve_runtime_cfg(cfg, n_seg, phases.shape[1], device=dev)
+        if mesh is None and pmesh.sharding_enabled():
+            local = [d for d in pmesh.available_devices() if d.type == dev.type]
+            if len(local) >= 2:
+                mesh = pmesh.segment_mesh(local)
     if mesh is None or n_seg < mesh.size:
         with costmodel.kernel_span("toa_fit_batch"):
             out = fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=dev)
         costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with obs.profiler_range(spans.FIT_TO_HOST):
+            return {k: v.cpu().numpy() for k, v in out.items()}
     from crimp_tpu_torch.parallel import registry
 
     pad = pmesh.pad_batch_for_mesh(n_seg, mesh)
@@ -989,7 +999,8 @@ def fit_toas_batch_auto(kind: str, tpl: ProfileParams, phases, masks, exposures,
             lambda slot, ph, mk, ex: fit_toas_batch(kind, tpl, ph, mk, ex, cfg, device=slot.device),
             pmesh.shard_segments(phases, mesh), pmesh.shard_segments(masks, mesh),
             pmesh.shard_segments(exposures, mesh))
-    out = {k: np.concatenate([p[k].cpu().numpy() for p in parts])[:n_seg] for k in parts[0]}
+    with obs.profiler_range(spans.FIT_TO_HOST):
+        out = {k: np.concatenate([p[k].cpu().numpy() for p in parts])[:n_seg] for k in parts[0]}
     costmodel.capture("toa_fit_batch", None, kind, tpl, phases, masks, exposures, cfg,
                       out=list(out.values()), plan=registry.specs_for("segment_batch", mesh))
     return out
@@ -999,26 +1010,28 @@ def slice_sorted_intervals(times, starts, ends, assume_sorted: bool = False) -> 
     """Per-interval event segments of ``times`` over inclusive [start, end]
     windows (host helper): binary-search slices on sorted input, boolean
     masks otherwise."""
-    times = np.asarray(times)
-    if not assume_sorted:
-        assume_sorted = bool(np.all(np.diff(times) >= 0))
-    if assume_sorted:
-        return [
-            times[np.searchsorted(times, s, "left"):np.searchsorted(times, e, "right")]
-            for s, e in zip(starts, ends)
-        ]
-    return [times[(times >= s) & (times <= e)] for s, e in zip(starts, ends)]
+    with obs.profiler_range(spans.FOLD_SLICE):
+        times = np.asarray(times)
+        if not assume_sorted:
+            assume_sorted = bool(np.all(np.diff(times) >= 0))
+        if assume_sorted:
+            return [
+                times[np.searchsorted(times, s, "left"):np.searchsorted(times, e, "right")]
+                for s, e in zip(starts, ends)
+            ]
+        return [times[(times >= s) & (times <= e)] for s, e in zip(starts, ends)]
 
 
 def pad_segments(phase_list: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
     """Pad ragged per-segment phase arrays to (S, Nmax) + mask (host helper)."""
-    n_max = max((len(p) for p in phase_list), default=1)
-    S = len(phase_list)
-    phases = np.zeros((S, n_max))
-    masks = np.zeros((S, n_max), dtype=bool)
-    for i, p in enumerate(phase_list):
-        phases[i, : len(p)] = p
-        masks[i, : len(p)] = True
+    with obs.profiler_range(spans.FOLD_PAD):
+        n_max = max((len(p) for p in phase_list), default=1)
+        S = len(phase_list)
+        phases = np.zeros((S, n_max))
+        masks = np.zeros((S, n_max), dtype=bool)
+        for i, p in enumerate(phase_list):
+            phases[i, : len(p)] = p
+            masks[i, : len(p)] = True
     return phases, masks
 
 

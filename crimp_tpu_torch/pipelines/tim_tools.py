@@ -12,43 +12,46 @@ from __future__ import annotations
 
 import numpy as np
 
+from crimp_tpu_torch import obs
 from crimp_tpu_torch.io import tim as tim_io
 from crimp_tpu_torch.io.table import read_columns
 from crimp_tpu_torch.models import timing
+from crimp_tpu_torch.obs import names as spans
 from crimp_tpu_torch.ops.ephem import integer_rotation_host
 
 
 def toas_to_tim_table(toa_mids, ph_shift, ph_ll, ph_ul, timMod, tempModPP: str = "ppTemplateMod",
                       inst: str = "Xray", addpn: bool = False) -> dict:
     """FORMAT-1 .tim columns from per-ToA epochs (MJD) and phase shifts (rad)."""
-    toa_mids = np.asarray(toa_mids, dtype=float)
-    dphi_cycles = np.asarray(ph_shift, dtype=float) / (2 * np.pi)
-    dphi_err_cycles = np.hypot(
-        np.asarray(ph_ll, dtype=float) / (2 * np.pi),
-        np.asarray(ph_ul, dtype=float) / (2 * np.pi),
-    ) / np.sqrt(2)
+    with obs.profiler_range(spans.TIM_ROTATION):
+        toa_mids = np.asarray(toa_mids, dtype=float)
+        tm = timing.resolve(timMod)
+        anchors = integer_rotation_host(tm, toa_mids)
+    with obs.profiler_range(spans.TIM_TABLE):
+        dphi_cycles = np.asarray(ph_shift, dtype=float) / (2 * np.pi)
+        dphi_err_cycles = np.hypot(
+            np.asarray(ph_ll, dtype=float) / (2 * np.pi),
+            np.asarray(ph_ul, dtype=float) / (2 * np.pi),
+        ) / np.sqrt(2)
+        freq = anchors["freq_intRotation"]
+        toa_tim = anchors["Tmjd_intRotation"] + (dphi_cycles / freq) / 86400.0
+        toa_err_us = (dphi_err_cycles / freq) * 1e6
 
-    tm = timing.resolve(timMod)
-    anchors = integer_rotation_host(tm, toa_mids)
-    freq = anchors["freq_intRotation"]
-    toa_tim = anchors["Tmjd_intRotation"] + (dphi_cycles / freq) / 86400.0
-    toa_err_us = (dphi_err_cycles / freq) * 1e6
-
-    n = len(toa_mids)
-    out = {
-        "template": np.full(n, tempModPP),
-        "Frequency": np.full(n, 700),
-        "TOA": np.round(toa_tim, 12),
-        "TOA_err": np.round(toa_err_us, 5),
-        "timeunit": np.full(n, "@"),
-        "flag_instrument": np.full(n, "-i"),
-        "instrument": np.full(n, inst),
-    }
-    if addpn:
-        pulse_number = anchors["ph_intRotation"]
-        pulse_number = pulse_number - np.min(pulse_number)
-        out["pulsenumberflag"] = np.full(n, "-pn")
-        out["pulsenumber"] = np.round(pulse_number).astype(np.int64)
+        n = len(toa_mids)
+        out = {
+            "template": np.full(n, tempModPP),
+            "Frequency": np.full(n, 700),
+            "TOA": np.round(toa_tim, 12),
+            "TOA_err": np.round(toa_err_us, 5),
+            "timeunit": np.full(n, "@"),
+            "flag_instrument": np.full(n, "-i"),
+            "instrument": np.full(n, inst),
+        }
+        if addpn:
+            pulse_number = anchors["ph_intRotation"]
+            pulse_number = pulse_number - np.min(pulse_number)
+            out["pulsenumberflag"] = np.full(n, "-pn")
+            out["pulsenumber"] = np.round(pulse_number).astype(np.int64)
     return out
 
 

@@ -21,7 +21,8 @@ Port of ``crimp_tpu/utils/profiling.py``:
   for ``primed_launches()``; a plain obs run never primes, so the flight
   recorder adds no device work to the timeline it records. Off the card it
   is host wall time. A raising body still records its measurement, with an
-  ``error`` attribute on the span.
+  ``error`` attribute on the span. While ``torch.profiler`` records, the
+  block is also a profiler range under ``name`` (``obs.profiler_range``).
 - ``compile_counters()``: what the port compiled, in place of JAX's
   compilation-cache listeners: the nvcc builds (``ops/z2_grid.BUILD_INFO``)
   and the CUDA-graph captures of the MCMC (``ops/mcmc.py``).
@@ -92,6 +93,8 @@ def timed(name: str, sync=None):
     events recorded on the current stream around the block; elsewhere it is
     host wall time."""
     events = slot = outer = None
+    rng = obs.profiler_range(name)
+    rng.__enter__()
     if _card_stream_live():
         events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         events[0].record()
@@ -126,6 +129,7 @@ def timed(name: str, sync=None):
             obs.record_span(name, dt, kind="kernel", **attrs)
         if error is not None:
             logger.warning("[timing] %s failed: %s", name, error)
+        rng.__exit__(None, None, None)
 
 
 def _keep(name: str, entry) -> None:

@@ -17,10 +17,12 @@ import time
 
 import numpy as np
 
+from crimp_tpu_torch import obs
 from crimp_tpu_torch.io import template as template_io
 from crimp_tpu_torch.io import tim as tim_io
 from crimp_tpu_torch.io.table import read_columns
 from crimp_tpu_torch.models import profiles, timing
+from crimp_tpu_torch.obs import names as spans
 from crimp_tpu_torch.ops import anchored, search, toafit
 from crimp_tpu_torch.ops.ephem import spin_frequency_host
 from crimp_tpu_torch.pipelines.tim_tools import toas_to_tim_table
@@ -75,51 +77,58 @@ def north_star(par_path: str, template_path: str, times: np.ndarray, intervals: 
                device=None) -> dict:
     """One pass of the north-star path; returns the scan rows, the fit
     columns and the wall time of each stage (seconds, the card synchronized
-    before every clock read)."""
-    dev = resolve_device(device)
-    tm = timing.resolve(par_path)
-    kind, tpl = profiles.from_template(template_io.read_template(template_path))
-    sec = (times - times.mean()) * 86400.0
-    freqs = np.linspace(0.1430, 0.1436, n_freq)
-    log_fdots = np.linspace(-14.5, -13.5, n_fdot)  # log10 |nudot|, spin-down
-    starts, ends = intervals["ToA_tstart"], intervals["ToA_tend"]
-    exposures = intervals["ToA_exposure"].astype(float)
-    stages: dict[str, float] = {}
+    before every clock read). The pass and each of its stretches of host
+    work are spans (``obs/names.py``)."""
+    with obs.span(spans.PASS):
+        with obs.profiler_range(spans.PASS_PREP):
+            dev = resolve_device(device)
+            tm = timing.resolve(par_path)
+            kind, tpl = profiles.from_template(template_io.read_template(template_path))
+            sec = (times - times.mean()) * 86400.0
+            freqs = np.linspace(0.1430, 0.1436, n_freq)
+            log_fdots = np.linspace(-14.5, -13.5, n_fdot)  # log10 |nudot|, spin-down
+            starts, ends = intervals["ToA_tstart"], intervals["ToA_tend"]
+            exposures = intervals["ToA_exposure"].astype(float)
+        stages: dict[str, float] = {}
 
-    def clock():
-        synchronize(dev)
-        return time.perf_counter()
+        def clock():
+            synchronize(dev)
+            return time.perf_counter()
 
-    t_all = t0 = clock()
-    rows, _ = search.PeriodSearch(sec, freqs, 2, device=dev).twod_ztest(log_fdots)
-    t1 = clock()
-    stages["z2_scan"] = t1 - t0
+        t_all = t0 = clock()
+        rows, _ = search.PeriodSearch(sec, freqs, 2, device=dev).twod_ztest(log_fdots)
+        t1 = clock()
+        stages["z2_scan"] = t1 - t0
 
-    seg_times = slice_intervals(times, starts, ends)
-    seg_phases, toa_mids = anchored.fold_segments(tm, seg_times, device=dev)
-    phases, masks = toafit.pad_segments(seg_phases)
-    t2 = clock()
-    stages["fold"] = t2 - t1
+        seg_times = slice_intervals(times, starts, ends)
+        seg_phases, toa_mids = anchored.fold_segments(tm, seg_times, device=dev)
+        phases, masks = toafit.pad_segments(seg_phases)
+        t2 = clock()
+        stages["fold"] = t2 - t1
 
-    cfg = toafit.ToAFitConfig(kind=kind, ph_shift_res=ph_shift_res, nbins=15)
-    fit = toafit.fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=dev)
-    fit = {k: v.cpu().numpy() for k, v in fit.items()}
-    t3 = clock()
-    stages["fit"] = t3 - t2
+        cfg = toafit.ToAFitConfig(kind=kind, ph_shift_res=ph_shift_res, nbins=15)
+        fit = toafit.fit_toas_batch(kind, tpl, phases, masks, exposures, cfg, device=dev)
+        with obs.profiler_range(spans.FIT_TO_HOST):
+            fit = {k: v.cpu().numpy() for k, v in fit.items()}
+        t3 = clock()
+        stages["fit"] = t3 - t2
 
-    freqs_mid, _ = spin_frequency_host(tm, toa_mids)
-    sec_seg = np.zeros_like(phases)
-    for i, t_seg in enumerate(seg_times):
-        sec_seg[i, : t_seg.size] = (t_seg - (t_seg[0] + t_seg[-1]) / 2) * 86400.0
-    fit["Hpower"] = search.h_power_segments(sec_seg, masks, freqs_mid, nharm=5, device=dev).cpu().numpy()
-    t4 = clock()
-    stages["htest"] = t4 - t3
+        with obs.span(spans.HTEST):
+            with obs.profiler_range(spans.HTEST_ROWS):
+                freqs_mid, _ = spin_frequency_host(tm, toa_mids)
+                sec_seg = np.zeros_like(phases)
+                for i, t_seg in enumerate(seg_times):
+                    sec_seg[i, : t_seg.size] = (t_seg - (t_seg[0] + t_seg[-1]) / 2) * 86400.0
+            fit["Hpower"] = search.h_power_segments(sec_seg, masks, freqs_mid, nharm=5, device=dev).cpu().numpy()
+        t4 = clock()
+        stages["htest"] = t4 - t3
 
-    table = toas_to_tim_table(toa_mids, fit["phShift"], fit["phShift_LL"], fit["phShift_UL"],
-                              tm, tempModPP=os.path.basename(template_path))
-    with tempfile.TemporaryDirectory() as tmp:
-        tim_io.write_tim(os.path.join(tmp, "north_star"), table)
-    t5 = clock()
-    stages["tim"] = t5 - t4
-    stages["total"] = t5 - t_all
-    return {"rows": rows, "fit": fit, "tim": table, "stages": stages}
+        with obs.span(spans.TIM):
+            table = toas_to_tim_table(toa_mids, fit["phShift"], fit["phShift_LL"], fit["phShift_UL"],
+                                      tm, tempModPP=os.path.basename(template_path))
+            with obs.profiler_range(spans.TIM_WRITE), tempfile.TemporaryDirectory() as tmp:
+                tim_io.write_tim(os.path.join(tmp, "north_star"), table)
+        t5 = clock()
+        stages["tim"] = t5 - t4
+        stages["total"] = t5 - t_all
+        return {"rows": rows, "fit": fit, "tim": table, "stages": stages}

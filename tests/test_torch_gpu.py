@@ -54,7 +54,10 @@ cannot take and a refused launch raise KernelError, with no chain or twin
 run in its place; its first harmonic pairs staged in shared memory move no
 bit: the planned stage, a stage short of the rows, n_stage 0 and the whole
 row give the chain's bits for every family, and a stage the entry cannot
-take raises KernelError. On two or more cards, the
+take raises KernelError. Under torch.profiler, a -rv fit at the north-star
+rows must show one range a K6 launch, each inside the fit's span, and none
+on the device's timeline; a campaign pass's device idle must lie inside
+step spans for at least 85% of it. On two or more cards, the
 sharded twins over distinct cards must give the bits of the same layout
 on shards of one card, their kernel spans must resolve, and a large scan
 must auto-shard over the cards within K2's tolerance of the opt-out.
@@ -1316,6 +1319,83 @@ class TestGeneralGoldenStage:
             with pytest.raises(KernelError, match="toafit_general_golden"):
                 general_sweep._launch_golden("fourier", tpl, x, mask, exposure, lo, hi, cfg, stage=stage)
         assert general_sweep.LAUNCHES["general_golden"] == 0
+
+
+def _north_star_rows():
+    """(times, intervals, phases, masks) of the north star's 84 intervals at
+    10 000 events a ToA, folded on the card and padded."""
+    from crimp_tpu_torch.models import timing
+    from crimp_tpu_torch.utils import surrogate
+
+    times, intervals = surrogate.build_surrogate(str(DATA / "1e2259.par"), str(DATA / "timIntToAs_1e2259.txt"),
+                                                 str(DATA / "1e2259_template.txt"), events_per_toa=10000, seed=7)
+    segs = surrogate.slice_intervals(times, intervals["ToA_tstart"], intervals["ToA_tend"])
+    seg_phases, _ = anchored.fold_segments(timing.resolve(str(DATA / "1e2259.par")), segs, device="cuda")
+    phases, masks = toafit.pad_segments(seg_phases)
+    return times, intervals, phases, masks
+
+
+def _profiled(fn):
+    """fn() under torch.profiler on the card: (host events, device events),
+    each (name, start ns, end ns)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = [], []
+    for ev in prof.profiler.kineto_results.events():
+        row = (ev.name(), int(ev.start_ns()), int(ev.start_ns()) + int(ev.duration_ns()))
+        (device if ev.device_type() == DeviceType.CUDA else host).append(row)
+    return host, device
+
+
+@pytest.mark.gpu
+class TestProfilerRanges:
+    """The spans as torch.profiler ranges on the card: one range a K6 launch
+    of a -rv fit at the north-star rows, each inside the fit's layer span,
+    none on the device's timeline; and a traced campaign pass whose device
+    idle lies inside step spans for at least 85% of it."""
+
+    def test_rv_fit_has_one_range_a_k6_launch(self, cuda_device):
+        from crimp_tpu_torch.io import template as template_io
+        from crimp_tpu_torch.obs import names
+        from crimp_tpu_torch.ops import general_sweep
+
+        _, intervals, phases, masks = _north_star_rows()
+        tpl_dict = template_io.read_template(str(DATA / "1e2259_template.txt"))
+        kind, tpl = profiles.from_template(tpl_dict)
+        idx, lo, hi, n_free = toafit.free_param_spec(kind, tpl_dict)
+        cfg = toafit.ToAFitConfig(kind=kind, ph_shift_res=1000, nbins=15, free_idx=idx, free_lo=lo, free_hi=hi,
+                                  n_free=n_free)
+        exposures = intervals["ToA_exposure"].astype(float)
+        def fit():
+            return toafit.fit_toas_batch_auto(kind, tpl, phases, masks, exposures, cfg, device=cuda_device)
+
+        fit()  # warm-up
+        general_sweep.reset_launches()
+        host, device = _profiled(fit)
+        sites = [ev for ev in host if ev[0].startswith("toa_general_")]
+        assert len(sites) == sum(general_sweep.LAUNCHES.values()) >= 4
+        (layer,) = [ev for ev in host if ev[0] == names.FIT]
+        assert all(layer[1] <= a and b <= layer[2] for _, a, b in sites)
+        assert not [ev for ev in device if ev[0].startswith(("crimp.", "toa_"))]
+
+    def test_campaign_pass_idle_lies_in_step_spans(self, cuda_device):
+        from crimp_tpu_torch.obs import names
+        from crimp_tpu_torch.utils import surrogate
+        from portbench import spans
+
+        times, intervals, _, _ = _north_star_rows()
+        args = (str(DATA / "1e2259.par"), str(DATA / "1e2259_template.txt"), times, intervals)
+        surrogate.north_star(*args, device=cuda_device)  # warm-up
+        host, device = _profiled(lambda: surrogate.north_star(*args, device=cuda_device))
+        (whole,) = [(a, b) for name, a, b in host if name == names.PASS]
+        busy = spans.union((a, b) for _, a, b in device)
+        idle = spans.idle_ns([whole], busy)
+        in_steps = spans.idle_ns(spans.union((a, b) for name, a, b in host if spans.is_step(name)), busy)
+        assert idle > 0 and in_steps >= 0.85 * idle, (in_steps / 1e6, idle / 1e6)
 
 
 @pytest.mark.gpu
