@@ -51,7 +51,13 @@
 // Entry points:
 //   toafit_general_nm    every (row, phase) problem's Nelder-Mead; a
 //                        512-thread block takes G (1, 2 or 4) consecutive
-//                        phases of one row side by side;
+//                        phases of one row side by side; at G 2 and 4 a
+//                        Fourier row's first harmonic pairs are staged once
+//                        a block (below);
+//   toafit_general_nm_room  the dynamic shared memory that launch may take
+//                        on the current card;
+//   toafit_general_nm_blocks  its resident blocks an SM at given dynamic
+//                        shared memory;
 //   toafit_general_golden  the -rv fit's golden-section refine and the refit
 //                        vector at its optimum, one 512-thread block a row
 //                        whose rounds run their two golden points side by
@@ -110,29 +116,37 @@
 //     order. Each family has its own event loop (eval_walk's KIND), so the
 //     Fourier loop carries none of the others' registers. Passes stop at
 //     the row's last masked event.
-//   - The golden launch's staged pair. A row's 26 rounds walk its events
-//     ~5 700 times, and the pair (C_1, S_1) and the mask byte depend on the
-//     event alone, so golden_kernel forms them once, after row_extent, with
-//     the walk's own operations (__dmul_rn(TWO_PI, x), libdevice cos and
-//     sin), into dynamic shared memory after its two simplices (16-byte
-//     aligned, 17 B an event: the stage), and its walks read them there
-//     in a loop of their own before the computed loop (eval_walk's Pairs:
-//     StagedPairs; nm_kernel and eval_kernel take ComputedPairs, whose code
-//     is the walk's as before; one loop choosing its pair a step took
+//   - The staged pair. The pair (C_1, S_1) and the mask byte depend on the
+//     event alone, and a block walks its row's events ~210 times
+//     (nm_kernel<4>, a brute or dense group of four phases) to ~5 700
+//     (golden_kernel's 26 rounds), so golden_kernel and nm_kernel<2, 4>
+//     form them once a block, after row_extent, with the walk's own
+//     operations (__dmul_rn(TWO_PI, x), libdevice cos and sin; nm_kernel's
+//     stage_row), into dynamic shared memory after their G simplices
+//     (16-byte aligned, 17 B an event: the stage), and their walks read
+//     them there in a loop of their own before the computed loop
+//     (eval_walk's Pairs: golden_kernel's StagedPairs holds the stage's
+//     pointers, nm_kernel's DynStage its count alone and forms them per
+//     walk, and only nm_kernel<G>'s walks of G or more vertices read it;
+//     nm_kernel<1> and eval_kernel take ComputedPairs, whose
+//     code is the walk's as before; one loop choosing its pair a step took
 //     golden_kernel from 200 to 2 794 B of spill). The values are the same
 //     doubles wherever formed and each thread keeps its chain of events in
-//     order across the two loops, so the stage moves no bit. The host plans n_stage
-//     (ops/general_sweep.py::golden_stage_events): the most events whose
-//     17 B fit toafit_general_golden_room(), the opt-in shared memory less
-//     the block's static Shared, row_extent's partials and GoldenShared,
-//     beside the simplices; a multiple of STAGE_STEP = 4 x 512, or the whole
-//     row. A whole step of every thread at every U (which divides 4) then
-//     lies on one side of n_stage, so no warp parts there; events at or
-//     above it compute their pair in the walk. Von Mises and Cauchy keep
-//     their direct cos((x - cen) - phi): their one phase-free input is x,
-//     so they stage nothing. Why not the 48 SMs the 84 row blocks leave
-//     idle: a row's event sums are pinned to 512 thread chains and a fixed
-//     tree, so a cluster of two 256-thread blocks a row could split the
+//     order across the two loops, so the stage moves no bit. The host plans
+//     n_stage (ops/general_sweep.py::stage_events): the most events whose
+//     17 B fit the room beside the G simplices, a multiple of STAGE_STEP =
+//     4 x 512, or the whole row. The room is the opt-in shared memory less
+//     the block's static Shared and row_extent's partials, and for
+//     golden_kernel GoldenShared (toafit_general_golden_room(),
+//     toafit_general_nm_room()); both kernels hold one block an SM whatever
+//     the stage (the f64 chains' 128 registers a thread under
+//     __launch_bounds__(512, 1)). A whole step of every thread at every U
+//     (which divides 4) then lies on one side of n_stage, so no warp parts
+//     there; events at or above it compute their pair in the walk. Von
+//     Mises and Cauchy keep their direct cos((x - cen) - phi): their one
+//     phase-free input is x, so they stage nothing. Why not the 48 SMs the
+//     84 row blocks of golden_kernel leave idle: a row's event sums are
+//     pinned to 512 thread chains and a fixed tree, so a cluster of two 256-thread blocks a row could split the
 //     chains with the same bits, but its 168 blocks would put both halves of
 //     some rows on shared SMs, those rows would run at today's pace, and the
 //     launch ends with its slowest row.
@@ -240,14 +254,24 @@ __host__ __device__ constexpr long long golden_bytes(int F, long long n_stage) {
   return stage_offset(F) + n_stage * static_cast<long long>(sizeof(double2) + 1);
 }
 
+// Where nm_kernel<G>'s stage begins after its G simplices: dyn_bytes(G, F)
+// rounded up to 16 bytes, written out (a device caller of dyn_bytes beside
+// golden_kernel's stage_offset changed how golden_kernel's address
+// arithmetic compiled).
+template <int G>
+__host__ __device__ constexpr long long nm_stage_offset(int F) {
+  return (G * (problem_doubles(F) * 8 + (F + 1LL) * 4) + 15) / 16 * 16;
+}
+
 // Where a Fourier walk takes an event's first harmonic pair (C_1, S_1) from.
-// nm_kernel and eval_kernel compute it in the walk (cos and sin of 2 pi x);
-// golden_kernel reads it, and the event's mask byte, from the block's stage
-// in dynamic shared memory for the events below n, formed once a launch
-// with the same operations, in a loop of its own, and computes it above n
-// in the walk's loop as the others do.
+// nm_kernel<1> and eval_kernel compute it in the walk (cos and sin of 2 pi
+// x); golden_kernel and nm_kernel<2, 4> read it, and the event's mask byte,
+// from the block's stage in dynamic shared memory for the events below n,
+// formed once a block with the same operations, in a loop of its own, and
+// compute it above n in the walk's loop as the others do.
 struct ComputedPairs {
   static constexpr bool STAGED = false;
+  static constexpr int MIN_V = 1;  // walks of at least MIN_V vertices read a stage
 };
 
 struct StagedPairs {
@@ -256,9 +280,34 @@ struct StagedPairs {
   // (utils/k6_ab.py --stage-u): each a divisor of 4, so that STAGE_STEP
   // events are whole steps of every thread
   static constexpr int U1 = 1, U2 = 2, U4 = 1;
+  static constexpr int MIN_V = 1;
   const double2* cs;        // (C_1, S_1) of events [0, n)
   const unsigned char* on;  // their mask bytes, below the row's last masked event
   long long n;
+  __device__ __forceinline__ const double2* stage_cs(const Args&) const { return cs; }
+  __device__ __forceinline__ const unsigned char* stage_on(const Args&) const { return on; }
+};
+
+// nm_kernel<2, 4>'s stage: the same pairs after its G simplices, with only
+// the count held across the passes and the pointers formed where a walk
+// reads them (holding StagedPairs' two pointers and 64-bit count ran
+// nm_kernel<4> 1.7% slower at 84 x 128 on an H100). Only walks of at least
+// G vertices read it, nearly all of a block's (one candidate a problem):
+// staged loops for fewer as well took nm_kernel<4>'s ptxas spill from 252
+// to 472 B and ran it 0.5-1% slower; nm_kernel<2> reading it in walks of
+// four alone ran 24% slower at 84 x 128 than in walks of two and four.
+template <int G>
+struct DynStage {
+  static constexpr bool STAGED = true;
+  static constexpr int MIN_V = G;
+  int n;
+  __device__ __forceinline__ double2* stage_cs(const Args& p) const {
+    extern __shared__ __align__(16) double dyn[];
+    return reinterpret_cast<double2*>(dyn + nm_stage_offset<G>(p.n_free) / 8);
+  }
+  __device__ __forceinline__ unsigned char* stage_on(const Args& p) const {
+    return reinterpret_cast<unsigned char*>(stage_cs(p) + n);
+  }
 };
 
 // An n_stage below the row's events is a multiple of this: a whole step of
@@ -444,14 +493,16 @@ __device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point 
     lmin[g] = CUDART_INF;
   }
   long long i_first = tid;
-  if constexpr (Pairs::STAGED && KIND == FOURIER) {
-    // golden_kernel's staged loop: the steps below min(stage, n_hi) read each
+  if constexpr (Pairs::STAGED && KIND == FOURIER && V >= Pairs::MIN_V) {
+    // the staged loop: the steps below min(stage, n_hi) read each
     // event's (C_1, S_1) and mask byte from the stage; the loop below goes on
     // from the first step past it with the same chains (STAGE_STEP: a whole
     // step of every thread, UV events a thread a step), so the bits are the
     // computed loop's
     constexpr int UV = V >= 4 ? StagedPairs::U4 : V == 2 ? StagedPairs::U2 : StagedPairs::U1;
     const long long n_s = pairs.n < n_hi ? pairs.n : n_hi;
+    const double2* const stage_cs = pairs.stage_cs(p);
+    const unsigned char* const stage_on = pairs.stage_on(p);
     long long i0 = tid;
     for (; i0 - tid < n_s; i0 += static_cast<long long>(UV) * THREADS) {
       double c1[UV], s1[UV], c[UV], s[UV], tot[UV][V];
@@ -459,8 +510,8 @@ __device__ void eval_walk(const Args& p, Shared& sh, long long r, int nv, Point 
 #pragma unroll
       for (int u = 0; u < UV; ++u) {  // past the row's last masked event: cos and sin of 0, as computed
         const long long i = i0 + static_cast<long long>(u) * THREADS;
-        const double2 cs = i < n_hi ? pairs.cs[i] : make_double2(1.0, 0.0);
-        on[u] = i < n_hi && pairs.on[i] != 0;
+        const double2 cs = i < n_hi ? stage_cs[i] : make_double2(1.0, 0.0);
+        on[u] = i < n_hi && stage_on[i] != 0;
         c1[u] = c[u] = cs.x;
         s1[u] = s[u] = cs.y;
       }
@@ -844,6 +895,36 @@ __device__ __forceinline__ void run_problems(const Args& p, Shared& sh, double* 
   }
 }
 
+// nm_kernel<G>'s stage (the design note), after its G simplices: (C_1, S_1)
+// as eval_walk computes them, and the mask, of row r's events below n_stage
+// and its last masked event; nothing for von Mises and Cauchy. The barrier
+// before the first pass orders it.
+template <int G>
+__device__ __forceinline__ DynStage<G> stage_row(const Args& p, const Shared& sh, long long r, long long n_stage) {
+  const DynStage<G> pairs{p.kind == FOURIER ? static_cast<int>(n_stage) : 0};
+  double2* stage_cs = pairs.stage_cs(p);
+  unsigned char* stage_on = pairs.stage_on(p);
+  const int tid = threadIdx.x;
+  const long long N = p.n_events, n_fill = pairs.n < sh.n_hi ? pairs.n : sh.n_hi;
+  const double* xr = p.x + r * N;
+  const unsigned char* m = p.mask + r * N;
+  for (long long i = tid; i < n_fill; i += THREADS) {
+    const double ang = __dmul_rn(TWO_PI, xr[i]);
+    stage_cs[i] = make_double2(cos(ang), sin(ang));
+    stage_on[i] = m[i];
+  }
+  return pairs;
+}
+
+// nm_kernel's pairs: computed at G 1, staged (stage_row) at G 2 and 4.
+template <int G>
+__device__ __forceinline__ auto nm_pairs(const Args& p, const Shared& sh, long long r, long long n_stage) {
+  if constexpr (G == 1)
+    return ComputedPairs();
+  else
+    return stage_row<G>(p, sh, r, n_stage);
+}
+
 // The position of a finished simplex's result, as torch.argmin over its
 // values by position: the first NaN, else the first least value
 // (golden_kernel's; nm_kernel writes the same out in place).
@@ -872,11 +953,13 @@ __device__ __forceinline__ void write_vector(const Args& p, const Shared& sh, co
 }
 
 // A block takes G consecutive phases of one row: every problem's whole
-// Nelder-Mead, side by side (see the design note).
+// Nelder-Mead, side by side (see the design note); at G 2 and 4 a Fourier
+// row's first harmonic pairs and mask bytes of events below n_stage are
+// staged once, and every walk reads them there.
 template <int G>
 __global__ void __launch_bounds__(THREADS, 1)
 nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out, int* shrinks, int* reads,
-          signed char* trace) {
+          signed char* trace, long long n_stage) {
   extern __shared__ __align__(16) double dyn[];
   __shared__ Shared sh;
   const long long P = p.n_phis, n_grp = (P + G - 1) / G;
@@ -885,9 +968,10 @@ nm_kernel(const Args p, const double* u0, int iters, double* ll, double* vec_out
   const int n_act = P - q0 < G ? static_cast<int>(P - q0) : G;
   load_block(p, sh);
   row_extent(p, sh, r);
+  const auto pairs = nm_pairs<G>(p, sh, r, n_stage);
   run_problems<G>(
       p, sh, dyn, r, n_act, iters, trace, [&](int g) { return p.phis[r * P + q0 + g]; },
-      [&](int d) { return u0[r * F + d]; }, [&](int g) { return r * P + q0 + g; });
+      [&](int d) { return u0[r * F + d]; }, [&](int g) { return r * P + q0 + g; }, pairs);
   // best_position and write_vector, written out: through the helpers
   // nm_kernel compiled to another spill (140 B at G 4) and ran 0.2% slower
   // at 84 x 128 on an H100 (utils/k6_ab.py against the source before them)
@@ -1032,18 +1116,46 @@ long long smem_room(size_t extra = 0) {
          static_cast<long long>(sizeof(Shared) + 2 * WARPS * sizeof(long long) + extra);
 }
 
+// nm_kernel<G>'s dynamic shared memory: G simplices, and at G 2 and 4 the
+// stage after them.
 template <int G>
-int launch_nm(const Args& args, const double* u0, int n_rows, int iters, double* ll, double* vec, int* shrinks,
-              int* reads, signed char* trace, cudaStream_t stream) {
-  const long long bytes = dyn_bytes(G, args.n_free);
+constexpr long long nm_bytes(int F, long long n_stage) {
+  return G == 1 ? dyn_bytes(1, F) : nm_stage_offset<G>(F) + n_stage * static_cast<long long>(sizeof(double2) + 1);
+}
+
+// nm_kernel<G>'s resident blocks an SM at bytes of dynamic shared memory
+// (0 where they do not fit or the card does not answer).
+template <int G>
+int nm_blocks(long long bytes) {
+  int n = 0;
+  if (bytes < 0 || bytes > smem_room() ||
+      cudaFuncSetAttribute(nm_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, nm_kernel<G>, THREADS, static_cast<size_t>(bytes)) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+template <int G>
+int launch_nm(const Args& args, const double* u0, int n_rows, int iters, long long n_stage, double* ll, double* vec,
+              int* shrinks, int* reads, signed char* trace, cudaStream_t stream) {
+  const long long bytes = nm_bytes<G>(args.n_free, n_stage);
   const long long blocks = static_cast<long long>(n_rows) * ((args.n_phis + G - 1) / G);
-  if (bytes > smem_room() || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  if ((G == 1 && n_stage != 0) || bytes > smem_room() || blocks > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaFuncSetAttribute(nm_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(bytes));
   if (set != cudaSuccess) return static_cast<int>(set);
   nm_kernel<G><<<static_cast<unsigned>(blocks), THREADS, static_cast<size_t>(bytes), stream>>>(
-      args, u0, iters, ll, vec, shrinks, reads, trace);
+      args, u0, iters, ll, vec, shrinks, reads, trace, n_stage);
   return static_cast<int>(cudaGetLastError());
+}
+
+// n_stage as a staging launch takes it: 0 to n_events, below n_events a
+// multiple of STAGE_STEP.
+bool bad_stage(long long n_stage, long long n_events) {
+  return n_stage < 0 || n_stage > n_events || (n_stage != n_events && n_stage % STAGE_STEP != 0);
 }
 
 }  // namespace
@@ -1065,27 +1177,49 @@ extern "C" int toafit_general_max_group(int n_free) {
 // decisions read (each evaluated once) over all steps; trace (S, P, iters)
 // the decision of every step, or null. kind: 0 Fourier, 1 von Mises, 2
 // Cauchy. free_idx must hold distinct indices below D. group is 1, 2 or 4
-// and at most toafit_general_max_group(n_free); it moves no bit.
-// Outputs may not alias the inputs.
+// and at most toafit_general_max_group(n_free); it moves no bit. n_stage:
+// at group 2 and 4 the events of a Fourier row whose first harmonic pair is
+// staged in shared memory (0 to n_events; below n_events a multiple of 4 x
+// 512), 0 at group 1; it moves no bit, and a launch whose stage does not
+// fit the card's shared memory is refused. Outputs may not alias the
+// inputs.
 extern "C" int toafit_general_nm(const double* x, const unsigned char* mask, const double* exposure,
                                  const double* phis, const double* base, const int* free_idx, const double* lo,
                                  const double* span, const double* u0, int n_rows, int n_phis, long long n_events,
-                                 int n_comp, int kind, int n_free, int iters, int group, double* ll, double* vec,
-                                 int* shrinks, int* reads, signed char* trace, void* stream) {
-  if (bad_args(n_rows, n_phis, n_events, n_comp, kind, n_free) || iters < 0)
+                                 int n_comp, int kind, int n_free, int iters, int group, long long n_stage,
+                                 double* ll, double* vec, int* shrinks, int* reads, signed char* trace, void* stream) {
+  if (bad_args(n_rows, n_phis, n_events, n_comp, kind, n_free) || iters < 0 || bad_stage(n_stage, n_events))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{x, mask, exposure, phis, base, free_idx, lo, span, n_events, n_phis, n_comp, kind, n_free};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (group) {
-    case 1: return launch_nm<1>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
-    case 2: return launch_nm<2>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
-    case 4: return launch_nm<4>(args, u0, n_rows, iters, ll, vec, shrinks, reads, trace, st);
+    case 1: return launch_nm<1>(args, u0, n_rows, iters, n_stage, ll, vec, shrinks, reads, trace, st);
+    case 2: return launch_nm<2>(args, u0, n_rows, iters, n_stage, ll, vec, shrinks, reads, trace, st);
+    case 4: return launch_nm<4>(args, u0, n_rows, iters, n_stage, ll, vec, shrinks, reads, trace, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The dynamic shared memory nm_kernel may take on the current card: its
+// simplices and its stage (ops/general_sweep.py::stage_events). Under
+// __launch_bounds__(512, 1) its f64 chains hold 128 registers a thread, one
+// block an SM, so the stage costs no resident block
+// (toafit_general_nm_blocks reads them).
+extern "C" long long toafit_general_nm_room() { return smem_room(); }
+
+// nm_kernel's resident blocks an SM at group phases a block (1, 2 or 4) and
+// bytes of dynamic shared memory (0 where they do not fit).
+extern "C" int toafit_general_nm_blocks(int group, long long bytes) {
+  switch (group) {
+    case 1: return nm_blocks<1>(bytes);
+    case 2: return nm_blocks<2>(bytes);
+    case 4: return nm_blocks<4>(bytes);
+    default: return 0;
+  }
+}
+
 // The dynamic shared memory golden_kernel may take on the current card: its
-// two simplices and its stage (ops/general_sweep.py::golden_stage_events).
+// two simplices and its stage (ops/general_sweep.py::stage_events).
 extern "C" long long toafit_general_golden_room() { return smem_room(sizeof(GoldenShared)); }
 
 // The readvaryparam fit's golden-section refine of every row's profile on
@@ -1106,8 +1240,8 @@ extern "C" int toafit_general_golden(const double* x, const unsigned char* mask,
                                      int n_rows, long long n_events, int n_comp, int kind, int n_free, int iters,
                                      int refine_iters, long long n_stage, double* phi_best, double* ll_max,
                                      double* vec, int* shrinks, int* reads, void* stream) {
-  if (bad_args(n_rows, 2, n_events, n_comp, kind, n_free) || iters < 0 || refine_iters < 0 || n_stage < 0 ||
-      n_stage > n_events || (n_stage != n_events && n_stage % STAGE_STEP != 0))
+  if (bad_args(n_rows, 2, n_events, n_comp, kind, n_free) || iters < 0 || refine_iters < 0 ||
+      bad_stage(n_stage, n_events))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{x, mask, exposure, nullptr, base, free_idx, lo, span, n_events, 2, n_comp, kind, n_free};
   const long long bytes = golden_bytes(n_free, n_stage);

@@ -13,8 +13,10 @@ the entry point ``ops/toafit.py`` routes ``cfg.free_idx`` to:
   the simplices in shared memory; each pass over the row's events
   evaluates every problem's next value: its reflect, the one more
   candidate its decision tree reads, or up to 4 starting or shrink
-  vertices. It reports per problem the shrink steps and the candidate
-  values its decisions read (what ``costmodel.k6_counts`` charges).
+  vertices. At G 2 and 4 a Fourier row's first harmonic pairs are staged
+  in shared memory once a block (``nm_stage`` plans how many events). It
+  reports per problem the shrink steps and the candidate values its
+  decisions read (what ``costmodel.k6_counts`` charges).
   ``LAUNCHES["general_sweep"]`` counts these launches. Operands K6 cannot
   take raise ``KernelError``; nothing falls back;
 - on a CPU tensor the plain twin ``general_profile_reference``: the
@@ -29,8 +31,11 @@ their two golden points side by side (G 2) through the Nelder-Mead body
 tensor ``general_golden_reference``, ``optimize.golden_section`` over
 one-phase twins and the twin at the optimum. Both give the bits of that
 chain. The launch stages a Fourier row's first harmonic pairs in shared
-memory once; ``golden_stage_events`` plans how many events (host code,
-the C entry refuses a stage that does not fit); the stage moves no bit.
+memory once; ``stage_events`` plans how many events (host code, the C
+entry refuses a stage that does not fit); the stage moves no bit. Inside
+an obs run each K6 launch of a Fourier template adds its events and those
+its walks read from the stage to the counters ``k6_fourier_events`` and
+``k6_staged_events``: their ratio is the staged share.
 
 ``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
 m, N) temporaries: the template with the free entries set to
@@ -56,7 +61,7 @@ import threading
 
 import torch
 
-from crimp_tpu_torch import resilience
+from crimp_tpu_torch import obs, resilience
 from crimp_tpu_torch.models.profiles import CAUCHY, FOURIER, VONMISES
 from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.ops.optimize import bounded_transform, golden_section, nelder_mead
@@ -78,10 +83,15 @@ INV_TWO_PI = 1.0 / (2 * math.pi)
 
 LAUNCHES = {"general_sweep": 0, "general_eval": 0, "general_golden": 0}
 
+# toafit_general_nm: x, mask, exposure, phis, base, free_idx, box lo, span, u0; n_rows, n_phis, n_events,
+# n_comp, kind, n_free, nm_iters, group, n_stage; ll, vec, shrinks, reads, trace, stream
+NM_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+               + [ctypes.c_longlong] + [ctypes.c_void_p] * 6)
 # toafit_general_golden: x, mask, exposure, lo, hi, base, free_idx, box lo, span, u0; n_rows, n_events,
 # n_comp, kind, n_free, nm_iters, refine_iters, n_stage; phi_best, ll_max, vec, shrinks, reads, stream
 GOLDEN_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 6)
+STAGE_ARG = 17  # n_stage's place in both entries' arguments
 STAGE_STEP = 4 * THREADS  # csrc/toafit_general.cu STAGE_STEP: a stage short of the row ends on a whole step
 STAGE_EVENT_BYTES = 16 + 1  # a staged event: its (C_1, S_1) and its mask byte
 
@@ -262,10 +272,14 @@ def _lib():
 
             lib = ctypes.CDLL(str(z2_grid.build()["toafit_general"]))
             vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.toafit_general_nm.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci, ci] + [vp] * 6
+            lib.toafit_general_nm.argtypes = NM_ARGTYPES
             lib.toafit_general_nm.restype = ci
             lib.toafit_general_max_group.argtypes = [ci]
             lib.toafit_general_max_group.restype = ci
+            lib.toafit_general_nm_room.argtypes = []
+            lib.toafit_general_nm_room.restype = cl
+            lib.toafit_general_nm_blocks.argtypes = [ci, cl]
+            lib.toafit_general_nm_blocks.restype = ci
             lib.toafit_general_eval.argtypes = [vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + [vp] * 2
             lib.toafit_general_eval.restype = ci
             lib.toafit_general_golden.argtypes = GOLDEN_ARGTYPES
@@ -295,20 +309,49 @@ def simplex_bytes(group: int, n_free: int) -> int:
     return group * doubles * 8 + group * (n_free + 1) * 4
 
 
-def golden_stage_events(n_free: int, n_events: int, room: int) -> int:
-    """n_stage, the events of a row whose first harmonic pair K6's golden
-    launch stages in shared memory: the most whose ``STAGE_EVENT_BYTES``
-    each fit ``room`` (``toafit_general_golden_room``: the card's
-    shared memory a block less the kernel's static state) beside the two
-    simplices (16-byte aligned), a multiple of ``STAGE_STEP``, or every one
-    of ``n_events`` where they all fit. Raises ``KernelError`` where not
-    even the two simplices fit."""
-    base = -(-simplex_bytes(2, n_free) // 16) * 16
+def nm_bytes(group: int, n_free: int, stage: int) -> int:
+    """A Nelder-Mead launch's dynamic shared memory at n_stage ``stage``
+    (csrc nm_bytes): ``group`` simplices, and at G 2 and 4 the stage after
+    them, 16-byte aligned."""
+    base = simplex_bytes(group, n_free)
+    return base if group == 1 else -(-base // 16) * 16 + stage * STAGE_EVENT_BYTES
+
+
+def stage_events(group: int, n_free: int, n_events: int, room: int) -> int:
+    """n_stage, the events of a row whose first harmonic pair a staging K6
+    launch (the golden refine: ``group`` 2; the Nelder-Mead at G 2 and 4)
+    stages in shared memory: the most whose ``STAGE_EVENT_BYTES`` each fit
+    ``room`` (``toafit_general_golden_room`` or ``toafit_general_nm_room``:
+    the card's shared memory a block less the kernel's static state) beside
+    the ``group`` simplices (16-byte aligned), a multiple of ``STAGE_STEP``,
+    or every one of ``n_events`` where they all fit. Raises ``KernelError``
+    where not even the simplices fit."""
+    base = -(-simplex_bytes(group, n_free) // 16) * 16
     if base > room:
-        raise resilience.KernelError(f"general_golden: two simplices of {n_free} free parameters ({base} B) do not "
-                                     f"fit the card's shared memory ({room} B)")
+        raise resilience.KernelError(f"K6: {group} simplices of {n_free} free parameters ({base} B) do not fit the "
+                                     f"card's shared memory ({room} B)")
     fit = (room - base) // STAGE_EVENT_BYTES
     return n_events if fit >= n_events else fit // STAGE_STEP * STAGE_STEP
+
+
+def nm_stage(kind, group: int, n_free: int, n_events: int, lib=None) -> int:
+    """The planned n_stage of a K6 Nelder-Mead launch at ``group`` phases a
+    block: ``stage_events`` in ``toafit_general_nm_room`` (``lib``'s; K6's
+    library when None) for a Fourier template at G 2 and 4, 0 otherwise
+    (``nm_kernel<1>`` and the other families stage nothing)."""
+    if kind != FOURIER or group == 1:
+        return 0
+    return stage_events(group, n_free, n_events, (lib or _lib()).toafit_general_nm_room())
+
+
+def _count_stage(kind, mask: torch.Tensor, stage: int) -> None:
+    """A Fourier launch's events and those its walks read from the stage
+    (the masked events below ``stage``) into the obs counters of the
+    active run; nothing outside a run (the sums wait on the card)."""
+    if kind != FOURIER or obs.active() is None:
+        return
+    obs.counter_add("k6_fourier_events", int(mask.sum()))
+    obs.counter_add("k6_staged_events", int(mask[:, :stage].sum()))
 
 
 def pass_plan(trace: list, n_free: int, group: int) -> torch.Tensor:
@@ -369,12 +412,14 @@ def _args(pk, x, mask, exposure, phis):
 
 
 def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bool = False,
-               group: int | None = None):
-    """Check the operands and launch K6's Nelder-Mead once, ``group``
-    phases a block (None: ``group_for``): (LL (S, P), vectors (S, P, D),
-    shrinks (S, P) int32, reads (S, P) int32 the candidate values the
-    decisions read, and the (S, P, nm_iters) int8 decisions with
-    ``trace``, else None)."""
+               group: int | None = None, lib=None, stage: int | None = None):
+    """Check the operands and launch K6's Nelder-Mead once (``lib`` a K6
+    library, K6's own when None), ``group`` phases a block (None:
+    ``group_for``): (LL (S, P), vectors (S, P, D), shrinks (S, P) int32,
+    reads (S, P) int32 the candidate values the decisions read, and the
+    (S, P, nm_iters) int8 decisions with ``trace``, else None). ``stage`` is
+    the launch's n_stage: None plans it (``nm_stage``), an int pins it (it
+    moves no bit; the entry refuses one it cannot take)."""
     S, P = phis.shape
     D = 3 * tpl.n_comp + 2
     ll = torch.empty((S, P), dtype=_F64, device=x.device)
@@ -389,18 +434,21 @@ def _launch_nm(kind, tpl, x, mask, exposure, phis, cfg, warm_vec=None, trace: bo
         return ll, vec, shrinks, reads, steps
     from crimp_tpu_torch.ops import z2_grid
 
-    lib = _lib()
+    lib = lib or _lib()
     with profiling.launch_window(x.device):
         if group is None:
             group = group_for(P, len(cfg.free_idx), lib)
         if group not in GROUPS:
             raise resilience.KernelError(f"general_sweep: K6 takes a group of {GROUPS} phases a block, got {group}")
+        if stage is None:
+            stage = nm_stage(kind, group, len(cfg.free_idx), x.shape[1], lib)
         rc = lib.toafit_general_nm(*_args(pk, x, mask, exposure, phis), pk["u0"].data_ptr(), S, P,
                                    x.shape[1], tpl.n_comp, _KIND_CODE[kind], len(cfg.free_idx), cfg.nm_iters,
-                                   group, ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
+                                   group, stage, ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
                                    None if steps is None else steps.data_ptr(), z2_grid.stream_of(x))
     z2_grid.check_launch(rc, "toafit_general_nm")
     _count_launch("general_sweep")
+    _count_stage(kind, mask, stage)
     return ll, vec, shrinks, reads, steps
 
 
@@ -434,7 +482,7 @@ def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None, stage: i
     vectors (S, D), shrinks (S,) int32 and reads (S,) int32, each summed
     over a row's 2 + 2 ``cfg.refine_iters`` problems). ``stage`` is the
     launch's n_stage, the Fourier events whose first harmonic pair it
-    stages in shared memory: None plans it (``golden_stage_events``; 0 for
+    stages in shared memory: None plans it (``stage_events`` at G 2; 0 for
     the families that take no pair), an int pins it (it moves no bit)."""
     S = x.shape[0]
     D = 3 * tpl.n_comp + 2
@@ -456,7 +504,7 @@ def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None, stage: i
     lib = lib or _lib()
     with profiling.launch_window(x.device):
         if stage is None:
-            stage = golden_stage_events(len(cfg.free_idx), x.shape[1], lib.toafit_general_golden_room())
+            stage = stage_events(2, len(cfg.free_idx), x.shape[1], lib.toafit_general_golden_room())
             stage = stage if kind == FOURIER else 0
         rc = lib.toafit_general_golden(
             x.data_ptr(), mask.data_ptr(), exposure.data_ptr(), lo.data_ptr(), hi.data_ptr(), pk["base"].data_ptr(),
@@ -465,6 +513,7 @@ def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None, stage: i
             phi.data_ptr(), ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(), z2_grid.stream_of(x))
     z2_grid.check_launch(rc, "toafit_general_golden")
     _count_launch("general_golden")
+    _count_stage(kind, mask, stage)
     return phi, ll, vec, shrinks, reads
 
 

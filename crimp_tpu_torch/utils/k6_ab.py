@@ -15,9 +15,13 @@ bits). Either source may have the one-problem-a-block C interface (no
 after ``iters``, ``toafit_general_max_group``); the binding follows the
 symbols the library exports. It prints:
 
-- each kernel's registers, stack frame and spill bytes (``-Xptxas -v``);
-- whether ``nm_kernel<1, 2, 4>`` and ``eval_kernel`` compile to the
-  parent's SASS instruction for instruction;
+- each kernel's registers, stack frame and spill bytes (``-Xptxas -v``),
+  and ``nm_kernel<1, 2, 4>``'s resident blocks an SM: the new build's
+  from ``toafit_general_nm_blocks`` at its launch without a stage and at
+  the planned stage on the north star's rows, the parent's from its
+  registers (``blocks_by_registers``);
+- whether ``nm_kernel<1, 2, 4>``, ``eval_kernel`` and ``golden_kernel``
+  compile to the parent's SASS instruction for instruction;
 - the evaluation loop's instructions per vertex-event by pipe (DFMA, DADD,
   DMUL, MUFU, ...), from ``cuobjdump -sass`` of a counting build of each
   source with the family fixed to Fourier and K to 6 (``p.kind`` -> 0,
@@ -43,6 +47,12 @@ symbols the library exports. It prints:
 - for a grouped source, the new kernel at every group size G above 1
   (``general_sweep.GROUPS``, the phases a block takes side by side) at
   128 and 64 phases, each bitwise the default launch;
+- ``nm_kernel<4>`` on the north star's rows (below) at 128 phases (the
+  brute grid) and 64 (a dense window round the brute grid's best phase):
+  a source that stages its first harmonic pairs (``nm_stage``'s plan)
+  and at n_stage 0, and the parent's, timed in turns and reversed, each
+  bitwise the staged launch in LL, vectors, shrinks, reads and the trace,
+  with the staged share of the events;
 - the readvaryparam fit's golden-section refine (25 iterations on the
   brute grid's best phase +- one grid step, then the profile at the
   optimum) at that shape and on the north star's rows (phase 14's
@@ -60,10 +70,11 @@ symbols the library exports. It prints:
   (``probe_source``: ``clock64()`` stamps in thread 0 of every block around
   a walk's vertex transform, event loop, warp sums, warp 0's tree and its
   barriers, and a pass's bookkeeping, ``advance`` and barriers, each part's
-  cycles added per block) runs the golden launch on the north star's rows
-  (the new source staged and at n_stage 0, whose event loops differ by the
-  pair's formation alone) and ``nm_kernel<4>`` at 84 x 128; the shares of a
-  block's cycles, the cycles a round, pass and walk.
+  cycles added per block) runs the golden launch and ``nm_kernel<4>`` at 84
+  x 128 on the north star's rows (a staging source staged and at n_stage
+  0, whose event loops differ by the pair's formation alone); the shares
+  of a block's cycles, the cycles a round, pass and walk, and the share of
+  the event loop's cycles a walk the stage takes off.
 
 ``--out`` writes everything as JSON.
 """
@@ -269,25 +280,93 @@ def kernel_sass(lib_path: str) -> dict:
     """{nm_kernel<G> / eval_kernel / golden_kernel: its SASS} of a library."""
     out = {}
     for name, instrs in sass_functions(lib_path).items():
-        m = re.search(r"(nm_kernel|eval_kernel|golden_kernel)(?:ILi(\d+)E)?", name)
-        if m:
-            out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = instrs
+        label = kernel_label(name)
+        if label:
+            out[label] = instrs
     return out
 
 
 def same_sass(lib_a: str, lib_b: str) -> dict:
     """{kernel: whether both libraries compile it to the same instructions
-    (opcodes and operands in order)} for the nm and eval kernels."""
+    (opcodes and operands in order)} for the nm, eval and golden kernels."""
     a, b = kernel_sass(lib_a), kernel_sass(lib_b)
-    return {k: [i[1:] for i in a[k]] == [i[1:] for i in b.get(k, [])] for k in sorted(a)
-            if k.startswith(("nm_kernel", "eval_kernel"))}
+    return {k: [i[1:] for i in a[k]] == [i[1:] for i in b.get(k, [])] for k in sorted(a)}
 
 
 def ptxas(log: str) -> dict:
     return {e["name"]: {k: e[k] for k in ("registers", "stack", "spill")} for e in z2_grid.ptxas_entries(log)}
 
 
-STAGE_ARG = 17  # n_stage's place in toafit_general_golden's arguments
+def kernel_label(name: str) -> str | None:
+    """nm_kernel<G>, eval_kernel or golden_kernel for a mangled name."""
+    m = re.search(r"(nm_kernel|eval_kernel|golden_kernel)(?:ILi(\d+)E)?", name)
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "") if m else None
+
+
+def blocks_by_registers(registers: int) -> int:
+    """Resident 512-thread blocks an SM that ``registers`` a thread allow
+    (65 536 registers an SM, allocated 8 a thread at a time)."""
+    return 65536 // (general_sweep.THREADS * (-(-max(registers, 1) // 8) * 8))
+
+
+STAGE_ARG = general_sweep.STAGE_ARG  # n_stage's place in the golden and nm entries' arguments
+
+
+def residency(new_lib, built: dict, n_free: int) -> dict:
+    """nm_kernel<1, 2, 4>'s resident blocks an SM: the new build's at n_stage
+    0 and at the largest stage its room takes (``toafit_general_nm_blocks``),
+    and each build's by its registers."""
+    out = {}
+    for g in general_sweep.GROUPS:
+        row = {}
+        for which, (_, log) in built.items():
+            regs = [e["registers"] for n, e in ptxas(log).items() if kernel_label(n) == f"nm_kernel<{g}>"]
+            if regs:
+                row[f"{which} by registers"] = blocks_by_registers(regs[0])
+        if new_lib.nm_staged:
+            most = 0 if g == 1 else general_sweep.stage_events(g, n_free, 1 << 40,
+                                                               new_lib.lib.toafit_general_nm_room())
+            blocks = new_lib.lib.toafit_general_nm_blocks
+            row["new at n_stage 0"] = blocks(g, general_sweep.nm_bytes(g, n_free, 0))
+            row["new at the largest stage"] = blocks(g, general_sweep.nm_bytes(g, n_free, most))
+            row["largest stage"] = most
+        out[f"nm_kernel<{g}>"] = row
+        print(f"resident blocks an SM, nm_kernel<{g}>: " + ", ".join(f"{k} {v}" for k, v in row.items()), flush=True)
+    return out
+
+
+def nm_stage_part(new: "K6Lib", old, kind, tpl, cfg, x, mask, exposure, reps: int) -> dict:
+    """nm_kernel<4> on the north star's rows at the brute grid (84 x 128) and
+    a dense window of 64 phases round its best phase: staged, at n_stage 0
+    and the parent's, timed in turns and reversed, each held bit for bit to
+    the staged launch in all five outputs (module note)."""
+    rows, n_ev = x.shape
+    F = len(cfg.free_idx)
+    brute = brute_grid(x.device, rows)
+    best = brute[0][torch.argmax(new.nm(kind, tpl, x, mask, exposure, brute, cfg)[0], dim=1)]
+    dense = (best[:, None] + (2 * np.pi / 1000) * (torch.arange(64, device=x.device) - 32)).contiguous()
+    out = {}
+    for label, phis in ((f"{rows} x 128", brute), (f"{rows} x 64", dense)):
+        stage = new.stage(kind, phis.shape[1], F, n_ev)
+        arms = {"staged": lambda trace=False, phis=phis: new.nm(kind, tpl, x, mask, exposure, phis, cfg, trace=trace),
+                "n_stage 0": lambda trace=False, phis=phis: new.nm(kind, tpl, x, mask, exposure, phis, cfg,
+                                                                   trace=trace, stage=0)}
+        if old is not None:
+            arms["parent"] = lambda trace=False, phis=phis: old.nm(kind, tpl, x, mask, exposure, phis, cfg, trace=trace)
+        ref = arms["staged"](trace=True)
+        row = {"group": new.group(phis.shape[1], F), "n_stage": stage,
+               "staged_share": float(mask[:, :stage].sum()) / float(mask.sum()),
+               "bitwise_staged": {name: bitwise(fn(trace=True), ref) for name, fn in arms.items()},
+               "ms": {name: [] for name in arms}}
+        for name in list(arms) + list(reversed(arms)):
+            row["ms"][name].append(event_ms(arms[name], reps))
+        out[label] = row
+        print(f"nm_kernel<{row['group']}> on the north star's rows, {label} phases, n_stage {stage} (staged share "
+              f"{row['staged_share']:.4f}): " + "; ".join(f"{k} " + " / ".join(f"{v:.3f}" for v in ms) + " ms"
+                                                      for k, ms in row["ms"].items())
+              + "; bitwise the staged launch: " + ", ".join(f"{k} {v}" for k, v in row["bitwise_staged"].items()),
+              flush=True)
+    return out
 
 
 class _Unstaged:
@@ -318,8 +397,16 @@ class K6Lib:
         if self.grouped:
             lib.toafit_general_max_group.argtypes = [ci]
             lib.toafit_general_max_group.restype = ci
-        lib.toafit_general_nm.argtypes = ([vp] * 9 + [ci, ci, cl, ci, ci, ci, ci] + ([ci] if self.grouped else [])
-                                          + [vp] * 6)
+        self.nm_staged = hasattr(lib, "toafit_general_nm_room")
+        if self.nm_staged:
+            lib.toafit_general_nm.argtypes = general_sweep.NM_ARGTYPES
+            lib.toafit_general_nm_room.argtypes = []
+            lib.toafit_general_nm_room.restype = cl
+            lib.toafit_general_nm_blocks.argtypes = [ci, cl]
+            lib.toafit_general_nm_blocks.restype = ci
+        else:
+            lib.toafit_general_nm.argtypes = ([vp] * 9 + [ci, ci, cl, ci, ci, ci, ci]
+                                              + ([ci] if self.grouped else []) + [vp] * 6)
         lib.toafit_general_nm.restype = ci
         self.has_golden = hasattr(lib, "toafit_general_golden")
         self.staged = hasattr(lib, "toafit_general_golden_room")
@@ -352,7 +439,17 @@ class K6Lib:
         z2_grid.check_launch(self.lib.k6_probe_read(acc.ctypes.data), "k6_probe_read")
         return acc.reshape(PROBE_BLOCKS, -1)[:n_blocks]
 
-    def nm(self, kind, tpl, x, mask, exposure, phis, cfg, group: int | None = None, trace: bool = False):
+    def stage(self, kind, P: int, F: int, n_events: int, group: int | None = None) -> int:
+        """The n_stage a Nelder-Mead launch plans (0 for a source that does
+        not stage it)."""
+        if not self.nm_staged:
+            return 0
+        return general_sweep.nm_stage(kind, self.group(P, F) if group is None else group, F, n_events, self.lib)
+
+    def nm(self, kind, tpl, x, mask, exposure, phis, cfg, group: int | None = None, trace: bool = False,
+           stage: int | None = None):
+        """One toafit_general_nm launch: (LL, vectors, shrinks, reads, trace);
+        ``stage`` pins n_stage (None: the plan) on a source that stages it."""
         S, P = phis.shape
         D = 3 * tpl.n_comp + 2
         pk = general_sweep.pack(tpl, cfg, S, None, x.device)
@@ -364,6 +461,8 @@ class K6Lib:
         grp = ()
         if self.grouped:
             grp = (general_sweep.group_for(P, len(cfg.free_idx), self.lib) if group is None else group,)
+        if self.nm_staged:
+            grp += (self.stage(kind, P, len(cfg.free_idx), x.shape[1], grp[0]) if stage is None else stage,)
         rc = self.lib.toafit_general_nm(*general_sweep._args(pk, x, mask, exposure, phis), pk["u0"].data_ptr(), S, P,
                                         x.shape[1], tpl.n_comp, 0, len(cfg.free_idx), cfg.nm_iters, *grp,
                                         ll.data_ptr(), vec.data_ptr(), shrinks.data_ptr(), reads.data_ptr(),
@@ -486,6 +585,9 @@ def probe_part(libs: dict, kind, tpl, cfg, x, mask, exposure, lo, hi, reps: int)
         if lib.staged:
             runs["golden n_stage 0"] = lambda: lib.golden(kind, tpl, x, mask, exposure, lo, hi, cfg, stage=0)
         runs["nm<4> 84 x 128"] = lambda: lib.nm(kind, tpl, x, mask, exposure, grid, cfg, group=4)
+        if lib.nm_staged:
+            runs["nm<4> 84 x 128 n_stage 0"] = lambda: lib.nm(kind, tpl, x, mask, exposure, grid, cfg, group=4,
+                                                              stage=0)
         for name, fn in runs.items():
             blocks = rows * (N_BRUTE // 4) if name.startswith("nm") else rows
             ms = event_ms(fn, reps)
@@ -497,11 +599,12 @@ def probe_part(libs: dict, kind, tpl, cfg, x, mask, exposure, lo, hi, reps: int)
                   "vertices a walk; shares " + ", ".join(f"{p} {100 * v:.2f}%" for p, v in res["share"].items())
                   + "; cycles a pass " + ", ".join(f"{p} {v:.0f}" for p, v in res["cycles_a_pass"].items()),
                   flush=True)
-        if "golden n_stage 0" in out[tag]:
-            a, b = (out[tag][n]["cycles_a_walk"]["event loop"] for n in ("golden n_stage 0", "golden"))
-            out[tag]["pair_share_of_event_loop"] = (a - b) / a
-            print(f"probe {tag}: the staged pair takes {100 * (a - b) / a:.2f}% off the golden event loop "
-                  f"({a:.0f} -> {b:.0f} cycles a walk)", flush=True)
+        for arm in ("golden", "nm<4> 84 x 128"):
+            if f"{arm} n_stage 0" in out[tag]:
+                a, b = (out[tag][n]["cycles_a_walk"]["event loop"] for n in (f"{arm} n_stage 0", arm))
+                out[tag].setdefault("pair_share_of_event_loop", {})[arm] = (a - b) / a
+                print(f"probe {tag}: the staged pair takes {100 * (a - b) / a:.2f}% off the {arm} event loop "
+                      f"({a:.0f} -> {b:.0f} cycles a walk)", flush=True)
     return out
 
 
@@ -630,6 +733,8 @@ def main(argv=None) -> int:
         return a
 
     ns = north_star_operands(dev)
+    res["residency"] = residency(new, {k: v for k, v in built.items() if k in ("new", "parent")}, F)
+    res["nm_stage"] = nm_stage_part(new, old, kind, tpl, cfg, *ns, args.reps)
     reps = max(1, args.reps // 2)
     res["golden"] = {label: golden_part(new, arms(ops), kind, tpl, cfg, *ops, reps, label)
                      for label, ops in (("uniform rows", (x, mask, exposure)), ("north-star rows", ns))}
@@ -644,6 +749,9 @@ def main(argv=None) -> int:
     if not all(v for g in res["golden"].values() for key in ("bitwise_chain", "bitwise_first")
                for v in g[key].values()):
         print("golden refine: NOT bitwise the chain or the staged launch", flush=True)
+        return 1
+    if not all(v for row in res["nm_stage"].values() for v in row["bitwise_staged"].values()):
+        print("nm_kernel on the north star's rows: NOT bitwise the staged launch", flush=True)
         return 1
     bad = [r["phis"] for r in res["launches"] if not (r["bitwise_twin"] or args.source)
            or not r.get("bitwise_parent", True)

@@ -473,7 +473,8 @@ class TestCInterface:
         funcs = _c_functions(SRC.read_text())
         assert set(lib.symbols) == set(funcs) == {"toafit_general_nm", "toafit_general_eval",
                                                   "toafit_general_max_group", "toafit_general_golden",
-                                                  "toafit_general_golden_room"}
+                                                  "toafit_general_golden_room", "toafit_general_nm_room",
+                                                  "toafit_general_nm_blocks"}
         for name, sym in lib.symbols.items():
             assert len(sym.argtypes) == funcs[name], name
 

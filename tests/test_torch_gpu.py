@@ -54,7 +54,10 @@ cannot take and a refused launch raise KernelError, with no chain or twin
 run in its place; its first harmonic pairs staged in shared memory move no
 bit: the planned stage, a stage short of the rows, n_stage 0 and the whole
 row give the chain's bits for every family, and a stage the entry cannot
-take raises KernelError. Under torch.profiler, a -rv fit at the north-star
+take raises KernelError; so do K6's Nelder-Mead's at G 2 and 4: the
+planned stage gives n_stage 0's bits in all five outputs on the north
+star's rows at 128 and 64 phases and on rows longer than the stage, and
+von Mises plans none. Under torch.profiler, a -rv fit at the north-star
 rows must show one range a K6 launch, each inside the fit's span, and none
 on the device's timeline; a campaign pass's device idle must lie inside
 step spans for at least 85% of it. On two or more cards, the
@@ -1268,23 +1271,80 @@ class TestGeneralGoldenKernel:
             assert torch.equal(fit[key], chained[key]), key
 
 
+def _bundled_rv_fit():
+    """(kind, template, cfg) of the north star's -rv fit: the bundled Fourier
+    template with its 13 vary parameters free, nm_iters 150."""
+    from crimp_tpu_torch.io import template as template_io
+
+    tpl_dict = template_io.read_template(str(DATA / "1e2259_template.txt"))
+    kind, tpl = profiles.from_template(tpl_dict)
+    idx, lo, hi, n_free = toafit.free_param_spec(kind, tpl_dict)
+    return kind, tpl, toafit.ToAFitConfig(kind=kind, free_idx=idx, free_lo=lo, free_hi=hi, n_free=n_free)
+
+
+def _nm_stage_operands(kind, phases, dev):
+    """K6 Nelder-Mead operands of a stage case: the north star's rows (84 x
+    10 000 events) at the brute grid (``phases`` 128) or a 64-phase dense
+    window, or ``_rv_operands``' 3 ragged rows of 15 300 to 16 000 events,
+    each longer than the stage, at 8 phases (``phases`` "ragged")."""
+    if phases == "ragged":
+        return _rv_operands(kind, dev, n_max=16000)
+    kind, tpl, cfg = _bundled_rv_fit()
+    _, intervals, x, mask = _north_star_rows()
+    x, mask = torch.as_tensor(x, device=dev), torch.as_tensor(mask, device=dev)
+    exposure = torch.as_tensor(intervals["ToA_exposure"].astype(float), device=dev)
+    if phases == 128:
+        phis = torch.linspace(-np.pi, np.pi, 128, dtype=torch.float64, device=dev).expand(x.shape[0], 128)
+    else:
+        phis = (0.3 + (2 * np.pi / 1000) * (torch.arange(64, device=dev) - 32)).to(torch.float64).expand(x.shape[0], 64)
+    return tpl.to(dev), x, mask, exposure, phis.contiguous(), cfg
+
+
+# the golden launch in every family (ids as before), nm_kernel<2> and <4> on
+# the north star's rows, one ragged Fourier case whose rows pass the stage
+# and one von Mises case, which stages nothing
+STAGE_CASES = ([pytest.param("golden", kind, None, None, id=kind) for kind in ("fourier", "vonmises", "cauchy")]
+               + [pytest.param("nm", "fourier", phases, group, id=f"nm{group}-84x{phases}")
+                  for group in (4, 2) for phases in (128, 64)]
+               + [pytest.param("nm", "fourier", "ragged", 4, id="nm4-ragged"),
+                  pytest.param("nm", "vonmises", "ragged", 4, id="nm4-vonmises")])
+
+
 @pytest.mark.gpu
 class TestGeneralGoldenStage:
-    """The golden launch's staged first harmonic pairs move no bit: the
+    """The staged first harmonic pairs move no bit. The golden launch: the
     planned stage, a stage short of the rows (their tails compute the pair),
     n_stage 0 and the whole row give the same five outputs, the chain's, for
-    every family (von Mises and Cauchy stage nothing); a stage the entry
-    cannot take raises KernelError."""
+    every family (von Mises and Cauchy stage nothing). nm_kernel<2> and <4>:
+    the planned stage gives n_stage 0's LL, vectors, shrinks, reads and
+    trace on the north star's rows and on rows longer than the stage; von
+    Mises plans no stage. A stage the entry cannot take raises KernelError."""
 
-    @pytest.mark.parametrize("kind", ["fourier", "vonmises", "cauchy"])
-    def test_stage_moves_no_bit_on_either_side(self, cuda_device, kind):
+    @pytest.mark.parametrize("launch,kind,phases,group", STAGE_CASES)
+    def test_stage_moves_no_bit_on_either_side(self, cuda_device, launch, kind, phases, group):
         from crimp_tpu_torch.ops import general_sweep
 
+        if launch == "nm":
+            tpl, x, mask, exposure, phis, cfg = _nm_stage_operands(kind, phases, cuda_device)
+            N, F = x.shape[1], len(cfg.free_idx)
+            planned = general_sweep.nm_stage(kind, group, F, N)
+            if kind != "fourier":
+                assert planned == 0
+            elif phases == "ragged":
+                assert 0 < planned < int(mask.sum(dim=1).min())  # every row has a computed tail
+            else:
+                assert planned == N  # the north star's 10 000-event rows stage whole
+            got = general_sweep._launch_nm(kind, tpl, x, mask, exposure, phis, cfg, trace=True, group=group)
+            for stage in (0, general_sweep.STAGE_STEP, planned):
+                again = general_sweep._launch_nm(kind, tpl, x, mask, exposure, phis, cfg, trace=True, group=group,
+                                                 stage=stage)
+                assert all(torch.equal(a, b) for a, b in zip(again, got)), stage
+            return
         tpl, x, mask, exposure, phis, cfg = _rv_operands(kind, cuda_device, n_max=16000)
         cfg = cfg._replace(refine_iters=4)
         lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
         N, F = x.shape[1], len(cfg.free_idx)
-        planned = general_sweep.golden_stage_events(F, N, general_sweep._lib().toafit_general_golden_room())
+        planned = general_sweep.stage_events(2, F, N, general_sweep._lib().toafit_general_golden_room())
         assert 0 < planned < int(mask.sum(dim=1).min())  # every row has a computed tail
         got = general_sweep._launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg)
         (phi, ll, vec), shrinks, reads = _golden_chain(kind, tpl, x, mask, exposure, lo, hi, cfg)
@@ -1313,12 +1373,17 @@ class TestGeneralGoldenStage:
         lo, hi = phis[:, 3].contiguous(), phis[:, 4].contiguous()
         N = x.shape[1]
         room = general_sweep._lib().toafit_general_golden_room()
-        assert general_sweep.golden_stage_events(len(cfg.free_idx), N, room) < N  # 40 000 events do not fit
+        assert general_sweep.stage_events(2, len(cfg.free_idx), N, room) < N  # 40 000 events do not fit
         general_sweep.reset_launches()
         for stage in (N, general_sweep.STAGE_STEP + 1, N + general_sweep.STAGE_STEP, -general_sweep.STAGE_STEP):
             with pytest.raises(KernelError, match="toafit_general_golden"):
                 general_sweep._launch_golden("fourier", tpl, x, mask, exposure, lo, hi, cfg, stage=stage)
-        assert general_sweep.LAUNCHES["general_golden"] == 0
+            with pytest.raises(KernelError, match="toafit_general_nm"):  # nm_kernel<4>, 8 phases a row
+                general_sweep._launch_nm("fourier", tpl, x, mask, exposure, phis, cfg, stage=stage)
+        with pytest.raises(KernelError, match="toafit_general_nm"):  # nm_kernel<1> stages nothing
+            general_sweep._launch_nm("fourier", tpl, x, mask, exposure, phis[:, :1].contiguous(), cfg,
+                                     stage=general_sweep.STAGE_STEP)
+        assert general_sweep.LAUNCHES["general_golden"] == general_sweep.LAUNCHES["general_sweep"] == 0
 
 
 def _north_star_rows():
