@@ -19,10 +19,11 @@ from __future__ import annotations
 PASS = "crimp.pass"
 PASS_PREP = "crimp.pass.prep"  # model and template resolved, event seconds, trial axes
 
-# search and K2 (ops/search.py: PeriodSearch.twod_ztest, the uniform-grid sums)
+# search and K2 / K3 (ops/search.py: PeriodSearch.ztest, .htest and .twod_ztest;
+# the uniform-grid sums on K2, general_harmonic_sums on K3)
 SCAN = "crimp.scan"
 SCAN_PLAN = "crimp.scan.plan"  # centred times, route, row coefficients, launch plan
-SCAN_TO_CARD = "crimp.scan.to_card"  # the events' copy to the card
+SCAN_TO_CARD = "crimp.scan.to_card"  # the events' copy to the card (1-D scans: centred there; K3: the frequencies)
 SCAN_ROWS = "crimp.scan.rows"  # powers to the host, the (freq, fdot, Z^2) rows
 
 # fold (ops/toafit.py's slicing and padding, ops/anchored.py::fold_segments)

@@ -817,14 +817,17 @@ def general_harmonic_sums(times, freqs, fdots=(0.0,), fddots=(0.0,), nharm: int 
     ``per_split`` pins K3's launch plan (None: ``autotune.resolve_blocks``
     under "general"); each trial's sums depend on it and on nothing else of
     the grid. The launch is the kernel span and cost row "general_sums"."""
-    dev = resolve_device(device)
-    half, sixth = row_coeffs(fdots, fddots, dev)
-    t, f = as_f64(times, dev), as_f64(freqs, dev)
-    n_rows = half.shape[0] * sixth.shape[0]
-    if per_split is None:
-        per_split, _ = autotune.resolve_blocks("general", t.shape[0], f.shape[0] * n_rows, poly,
-                                               n_rows=n_rows, nharm=int(nharm), trig_dtype=trig_dtype,
-                                               device=dev)
+    with obs.profiler_range(spans.SCAN_TO_CARD):
+        dev = resolve_device(device)
+        t, f = as_f64(times, dev), as_f64(freqs, dev)
+    with obs.profiler_range(spans.SCAN_PLAN):
+        half, sixth = row_coeffs(fdots, fddots, dev)
+        n_rows = half.shape[0] * sixth.shape[0]
+        obs.counter_add("general_trials", f.shape[0] * n_rows)
+        if per_split is None:
+            per_split, _ = autotune.resolve_blocks("general", t.shape[0], f.shape[0] * n_rows, poly,
+                                                   n_rows=n_rows, nharm=int(nharm), trig_dtype=trig_dtype,
+                                                   device=dev)
     with costmodel.kernel_span("general_sums"):
         cs = z2_general.general_sums(t, f, half, sixth, int(nharm), trig_dtype, poly, per_split=per_split)
     costmodel.capture("general_sums", z2_general.general_sums, t, f, half, sixth, int(nharm), trig_dtype,
@@ -966,31 +969,36 @@ class PeriodSearch:
     def _sharded_kw(self) -> dict:
         return {"use_fastpath": self.use_grid_fastpath, "poly": self._poly()}
 
-    def ztest(self) -> np.ndarray:
-        mesh = self._mesh()
-        if mesh is not None:
-            from crimp_tpu_torch.parallel import mesh as pmesh
+    def _scan_1d(self, sharded: str, on_grid, general) -> np.ndarray:
+        """One power a frequency through ``parallel.mesh``'s twin ``sharded``,
+        K2 (a uniform grid) or K3, inside the scan's layer and step spans.
+        On one device the events go to it as they are and are centred there:
+        the same f64 differences as ``_centered``, without a host pass."""
+        with obs.span(spans.SCAN):
+            with obs.profiler_range(spans.SCAN_PLAN):
+                mesh = self._mesh()
+                grid = self._grid()
+                if mesh is not None:
+                    centered = self._centered()
+            if mesh is not None:
+                from crimp_tpu_torch.parallel import mesh as pmesh
 
-            return pmesh.z2_sharded(self._centered(), self.freq, self.nbrHarm, mesh, **self._sharded_kw())
-        grid = self._grid()
-        if grid is not None:
-            power = z2_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
-        else:
-            power = z2_power(self._centered(), self.freq, self.nbrHarm, **self._kw())
-        return power.cpu().numpy()
+                power = getattr(pmesh, sharded)(centered, self.freq, self.nbrHarm, mesh, **self._sharded_kw())
+            else:
+                with obs.profiler_range(spans.SCAN_TO_CARD):
+                    centered = as_f64(self.time, self.device) - float(self.t0)
+                if grid is not None:
+                    power = on_grid(centered, *grid, len(self.freq), self.nbrHarm, **self._kw())
+                else:
+                    power = general(centered, self.freq, self.nbrHarm, **self._kw())
+            with obs.profiler_range(spans.SCAN_ROWS):
+                return power.cpu().numpy() if isinstance(power, torch.Tensor) else power
+
+    def ztest(self) -> np.ndarray:
+        return self._scan_1d("z2_sharded", z2_power_grid, z2_power)
 
     def htest(self) -> np.ndarray:
-        mesh = self._mesh()
-        if mesh is not None:
-            from crimp_tpu_torch.parallel import mesh as pmesh
-
-            return pmesh.h_sharded(self._centered(), self.freq, self.nbrHarm, mesh, **self._sharded_kw())
-        grid = self._grid()
-        if grid is not None:
-            power = h_power_grid(self._centered(), *grid, len(self.freq), self.nbrHarm, **self._kw())
-        else:
-            power = h_power(self._centered(), self.freq, self.nbrHarm, **self._kw())
-        return power.cpu().numpy()
+        return self._scan_1d("h_sharded", h_power_grid, h_power)
 
     def twod_ztest(self, freq_dot):
         """2-D Z^2 on a (log10 |nudot|) grid, spin-down sign enforced.

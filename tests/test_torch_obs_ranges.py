@@ -10,6 +10,10 @@
   and no range is entered; while the profiler records, a span never
   synchronizes the card, with or without a run; an obs run records the
   layer spans and kernel sites, not the steps;
+- ``PeriodSearch.ztest`` and ``.htest`` on a grid not uniform in frequency
+  open the scan's layer span round its plan, the copy to the card, K3's
+  kernel site and the rows, and an obs run counts the trials dispatched
+  to K3 (``general_trials``);
 - every name is listed in the observability guide.
 """
 
@@ -188,7 +192,55 @@ class TestCost:
         assert len(calls) == 2
 
 
+# the 1-D scans on K3: each step's parent
+SCAN_1D_PARENT = {spans.SCAN_PLAN: spans.SCAN, spans.SCAN_TO_CARD: spans.SCAN, "general_sums": spans.SCAN,
+                  spans.SCAN_ROWS: spans.SCAN}
+
+
+class TestScan1DRanges:
+    """A period-stepped grid (1/period of periods stepped evenly) through K3."""
+
+    @pytest.fixture(scope="class")
+    def search_1d(self):
+        from crimp_tpu_torch.ops import search
+
+        times = np.sort(np.random.RandomState(11).uniform(-2e5, 2e5, 3000))
+        freqs = 1.0 / np.linspace(7.2, 6.8, 90)
+        assert search.uniform_grid(freqs) is None
+        return search.PeriodSearch(times, freqs, 2, device="cpu")
+
+    @pytest.mark.parametrize("entry", ["ztest", "htest"])
+    def test_steps_lie_inside_the_scan(self, search_1d, entry):
+        getattr(search_1d, entry)()  # warm-up
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            getattr(search_1d, entry)()
+        events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()]
+        (scan,) = [ev for ev in events if ev[0] == spans.SCAN]
+        for child, parent in SCAN_1D_PARENT.items():
+            found = [ev for ev in events if ev[0] == child]
+            assert found, child
+            assert all(_within(ev, [scan]) for ev in found), (child, parent)
+        # the plan, the copy, the launch and the rows in that order
+        (k3,) = [ev for ev in events if ev[0] == "general_sums"]
+        (rows,) = [ev for ev in events if ev[0] == spans.SCAN_ROWS]
+        assert all(ev[2] <= k3[1] for ev in events if ev[0] in (spans.SCAN_PLAN, spans.SCAN_TO_CARD))
+        assert k3[2] <= rows[1]
+
+    @pytest.mark.parametrize("entry", ["ztest", "htest"])
+    def test_an_obs_run_counts_general_trials(self, search_1d, entry, monkeypatch, tmp_path):
+        monkeypatch.setenv("CRIMP_TORCH_OBS", "1")
+        monkeypatch.setenv("CRIMP_TORCH_OBS_DIR", str(tmp_path))
+        with obs.run("scan_1d") as rec:
+            plain = getattr(search_1d, entry)()
+            assert rec.counters["general_trials"] == search_1d.freq.size * 1
+        with open(obs.last_manifest_path()) as fh:
+            assert spans.SCAN in {s["name"] for s in json.load(fh)["spans"]}
+        monkeypatch.setenv("CRIMP_TORCH_OBS", "0")
+        np.testing.assert_array_equal(plain, getattr(search_1d, entry)())
+
+
 def test_every_name_is_in_the_guide():
     text = DOC.read_text()
-    for name in NAMES + list(PARENT):
+    for name in NAMES + list(PARENT) + list(SCAN_1D_PARENT):
         assert f"`{name}`" in text, name
