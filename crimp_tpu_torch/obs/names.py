@@ -39,6 +39,7 @@ FIT = "crimp.fit"
 FIT_PLAN = "crimp.fit.plan"  # the runtime knobs and the sharding decision
 FIT_TO_CARD = "crimp.fit.to_card"  # phases, masks, exposures and template to the card
 FIT_EVENTS = "crimp.fit.events"  # K5's sweep_events, once a fit
+FIT_GROUP = "crimp.fit.group"  # one row group's chain of K6 launches (brute, golden refine, dense window)
 FIT_ERROR_SCAN = "crimp.fit.error_scan"  # the error scan: its launches and host bookkeeping
 FIT_CHI2 = "crimp.fit.chi2"  # the binned-profile goodness of fit
 FIT_TO_HOST = "crimp.fit.to_host"  # the fit's columns to the host

@@ -37,6 +37,11 @@ an obs run each K6 launch of a Fourier template adds its events and those
 its walks read from the stage to the counters ``k6_fourier_events`` and
 ``k6_staged_events``: their ratio is the staged share.
 
+``plan_row_groups`` is the host plan of the readvaryparam fit's row groups
+(``ops/toafit.py`` runs each group's chain of K6 launches on a stream of
+its own): the rows longest first, cut into the number of groups a
+list-scheduling model of K6's blocks on the card's SMs finds fastest.
+
 ``general_nll`` is the twin of K6's evaluation, in torch ops over (S, P,
 m, N) temporaries: the template with the free entries set to
 ``lo + span * (1 / (1 + exp(-u)))``, the curve with each term in the
@@ -56,9 +61,12 @@ takes K6 is ``toafit._on_card``'s one test (imported at call time:
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
 import math
 import threading
 
+import numpy as np
 import torch
 
 from crimp_tpu_torch import obs, resilience
@@ -95,10 +103,22 @@ STAGE_ARG = 17  # n_stage's place in both entries' arguments
 STAGE_STEP = 4 * THREADS  # csrc/toafit_general.cu STAGE_STEP: a stage short of the row ends on a whole step
 STAGE_EVENT_BYTES = 16 + 1  # a staged event: its (C_1, S_1) and its mask byte
 
+# plan_row_groups' model: a K6 block's time is BLOCK_US[launch] * (its row's
+# masked events + ROW_OVERHEAD), one block an SM (__launch_bounds__(512, 1));
+# the costs make the one-group schedule of the 1E 2259+586 campaign's 84 rows
+# (5 136 to 14 897 events) take the brute sweep's, golden refine's and dense
+# window's measured 230, 235 and 127 ms on an H100's 132 SMs
+ROW_OVERHEAD = 1240  # events: a pass's work outside the event loop (~11 900 of ~106 800 cycles)
+BLOCK_US = {"brute": 0.96701, "golden": 14.5628, "dense": 1.03381}
+MAX_ROW_GROUPS = 4
+ROW_GROUP_GAIN = 0.02  # a further group must shorten the model's time by this share
+
 _LIB = None
 _LIB_LOCK = threading.Lock()
-# guards LAUNCHES (fits run beside the heartbeat and a serving engine's prep thread)
+# guards LAUNCHES and _BOXES (fits run beside the heartbeat and a serving engine's prep thread)
 _STATE_LOCK = threading.Lock()
+_BOXES: dict = {}
+BOX_CAP = 64  # (box, device) pairs _box keeps
 
 
 def reset_launches() -> None:
@@ -122,6 +142,28 @@ def flatten_template(tpl) -> torch.Tensor:
     return torch.cat([tpl.norm[..., None], tpl.amp, tpl.loc, tpl.wid, tpl.amp_shift[..., None]], dim=-1)
 
 
+def _box(cfg, device) -> dict:
+    """The free indices and their box on ``device``, kept for the first
+    BOX_CAP (box, device) pairs: a launch then copies nothing from the host,
+    so the host issues a chain of launches without waiting on the card. Each
+    tensor is a host copy, complete when it returns (no kernel a stream could
+    run late), and a kept box is never freed, so every stream may read it; a
+    box past the cap is made for its call alone, on the stream that uses it."""
+    device = torch.device(device)
+    key = (tuple(cfg.free_idx), tuple(cfg.free_lo), tuple(cfg.free_hi), device)
+    with _STATE_LOCK:
+        box = _BOXES.get(key)
+    if box is None:
+        tf = bounded_transform(cfg.free_lo, cfg.free_hi)
+        box = {"idx": torch.as_tensor(cfg.free_idx, dtype=torch.long, device=device),
+               "free_idx": torch.as_tensor(cfg.free_idx, dtype=torch.int32, device=device),
+               "span": (tf.hi - tf.lo).to(device), "tf": bounded_transform(tf.lo.to(device), tf.hi.to(device))}
+        with _STATE_LOCK:
+            if key in _BOXES or len(_BOXES) < BOX_CAP:
+                box = _BOXES.setdefault(key, box)
+    return box
+
+
 def pack(tpl, cfg, n_rows: int, warm_vec=None, device=None) -> dict:
     """K6's problem operands on ``device``: ``base`` the template's
     flattened vector (D,), ``free_idx`` (F,) int32, ``lo`` and ``span`` =
@@ -129,12 +171,10 @@ def pack(tpl, cfg, n_rows: int, warm_vec=None, device=None) -> dict:
     free_idx]) of every row, ``start`` the template or ``warm_vec`` (S, D)."""
     device = tpl.norm.device if device is None else device
     base = flatten_template(tpl).to(device=device, dtype=_F64)
-    idx = torch.as_tensor(cfg.free_idx, dtype=torch.long, device=device)
-    tf = bounded_transform(cfg.free_lo, cfg.free_hi)
+    box = _box(cfg, device)
     start = base.expand(n_rows, -1) if warm_vec is None else warm_vec.to(device=device, dtype=_F64)
-    return {"base": base.contiguous(), "free_idx": idx.to(torch.int32).contiguous(), "idx": idx,
-            "lo": tf.lo.to(device).contiguous(), "span": (tf.hi - tf.lo).to(device).contiguous(),
-            "u0": tf.to_unbounded(start[:, idx]).contiguous()}
+    return {"base": base.contiguous(), "free_idx": box["free_idx"], "idx": box["idx"], "lo": box["tf"].lo,
+            "span": box["span"], "u0": box["tf"].to_unbounded(start[:, box["idx"]]).contiguous()}
 
 
 def to_bounded(pk: dict, u: torch.Tensor) -> torch.Tensor:
@@ -515,6 +555,79 @@ def _launch_golden(kind, tpl, x, mask, exposure, lo, hi, cfg, lib=None, stage: i
     _count_launch("general_golden")
     _count_stage(kind, mask, stage)
     return phi, ll, vec, shrinks, reads
+
+
+# ---------------------------------------------------------------------------
+# Row groups: the readvaryparam fit's chains of launches side by side
+# ---------------------------------------------------------------------------
+
+
+def schedule_ms(groups, n_sm: int, n_brute: int = 128, n_dense: int = 64) -> float:
+    """The model's time of a readvaryparam fit's three K6 launches (the brute
+    grid of ``n_brute`` phases, the golden refine, the dense window of
+    ``n_dense``) when each row group of ``groups`` (each a sequence of its
+    rows' masked events, in launch order) runs them in turn on a stream of
+    its own, group 0 the first in priority: list scheduling on ``n_sm`` SMs
+    of one block each, a freed SM taking the next block, in row order, of
+    the first group whose launch is ready (its group's last launch has
+    ended). A block's time is ``BLOCK_US[launch] * (events +
+    ROW_OVERHEAD)``; a row takes ceil(P / ``GROUP``) blocks at P phases."""
+    chains = []
+    for rows in groups:
+        launches = [[BLOCK_US[name] * (n + ROW_OVERHEAD) for n in rows for _ in range(blocks)]
+                    for name, blocks in (("brute", -(-n_brute // GROUP)), ("golden", 1),
+                                         ("dense", -(-n_dense // GROUP)))]
+        chains.append([blocks for blocks in launches if blocks])
+    sms = [0.0] * n_sm
+    launch, nxt, ready, ends = ([0] * len(chains) for _ in range(4))
+    live = [g for g, chain in enumerate(chains) if chain]
+    end = 0.0
+    while live:
+        t = heapq.heappop(sms)
+        g = next((g for g in live if ready[g] <= t), None)
+        if g is None:  # no launch is ready: the SM waits for the first that will be
+            heapq.heappush(sms, min(ready[g] for g in live))
+            continue
+        blocks = chains[g][launch[g]]
+        done = t + blocks[nxt[g]]
+        heapq.heappush(sms, done)
+        ends[g] = max(ends[g], done)
+        nxt[g] += 1
+        if nxt[g] == len(blocks):
+            ready[g], nxt[g] = ends[g], 0
+            launch[g] += 1
+            if launch[g] == len(chains[g]):
+                live.remove(g)
+                end = max(end, ends[g])
+    return end / 1e3
+
+
+@functools.lru_cache(maxsize=64)
+def _group_count(counts: tuple, n_sm: int, n_brute: int, n_dense: int, max_groups: int) -> int:
+    order = np.argsort(-np.asarray(counts), kind="stable")
+    best, best_ms = 1, schedule_ms([counts], n_sm, n_brute, n_dense)
+    for g in range(2, min(max_groups, len(counts)) + 1):
+        ms = schedule_ms([[counts[r] for r in part] for part in np.array_split(order, g)], n_sm, n_brute, n_dense)
+        if ms < best_ms * (1 - ROW_GROUP_GAIN):
+            best, best_ms = g, ms
+    return best
+
+
+def plan_row_groups(row_events, n_sm: int, n_brute: int = 128, n_dense: int = 64,
+                    max_groups: int = MAX_ROW_GROUPS) -> list[np.ndarray]:
+    """The row groups of a readvaryparam fit, from each row's masked events
+    and the card's SMs alone: a list of row-index arrays, one a group. One
+    group is every row in the batch's order. Otherwise the rows sorted by
+    events, most first (ties in row order), cut into G near-equal
+    consecutive runs, G from 2 to ``max_groups`` the fastest by
+    ``schedule_ms``, each further group taken only where it shortens the
+    model's time by ``ROW_GROUP_GAIN``. Fewer than two rows: one group."""
+    counts = tuple(int(n) for n in np.asarray(row_events).reshape(-1))
+    g = 1 if len(counts) < 2 or max_groups < 2 else _group_count(counts, int(n_sm), int(n_brute), int(n_dense),
+                                                                  int(max_groups))
+    if g == 1:
+        return [np.arange(len(counts))]
+    return np.array_split(np.argsort(-np.asarray(counts), kind="stable"), g)
 
 
 # ---------------------------------------------------------------------------

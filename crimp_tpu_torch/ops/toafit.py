@@ -49,7 +49,12 @@ golden-section refine with the refit vector at its optimum in one launch of
 K6's ``toafit_general_golden`` (``general_sweep.general_golden``,
 ``LAUNCHES["general_golden"]``), bitwise the chain of one-phase launches
 it replaces; on a CPU tensor the twins ``general_profile_reference`` and
-``general_golden_reference``. A free_idx fit launches no K5.
+``general_golden_reference``. A free_idx fit launches no K5. In golden
+mode its brute grid, refine and dense window are a chain of K6 launches a
+row group (``_general_chains``): on a card the rows longest first, in the
+groups ``general_sweep.plan_row_groups`` models fastest, each group's chain
+on a stream of its own, so one group's golden refine, a block a row, shares
+the SMs with the other groups' sweeps; every row keeps its bits.
 
 ``cfg.mxu_bf16 == 1`` runs the Fourier profile sweep's two contractions
 on bf16-rounded operands with f32 accumulation (in K5 on the card; in the
@@ -63,6 +68,7 @@ its caller passes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -321,9 +327,10 @@ NORM_NEWTON, NORM_JOINT, NORM_FIXED = 0, 1, 2  # csrc/toafit.cu NormMode
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
-# guards LAUNCHES (a survey's or serving engine's fit runs beside the
-# heartbeat and the engine's prep thread)
+# guards LAUNCHES and _GROUP_STREAMS (a survey's or serving engine's fit runs
+# beside the heartbeat and the engine's prep thread)
 _STATE_LOCK = threading.Lock()
+_GROUP_STREAMS: dict = {}  # (device, row group) -> its stream (_group_stream)
 
 
 def reset_launches() -> None:
@@ -710,14 +717,46 @@ def _first_true(block: torch.Tensor) -> torch.Tensor:
     return torch.argmax(block.to(torch.uint8), dim=-1)
 
 
+def _dense_steps(cfg: ToAFitConfig) -> int:
+    """W, the error scan's dense first window in steps a side."""
+    W = cfg.err_dense_window if cfg.err_dense_window >= 0 else DENSE_WINDOW_DEFAULT
+    return min(W, cfg.ph_shift_res // 2)
+
+
+def _scan_profile(kind, tpl, x, mask, exposure, cfg: ToAFitConfig, warm_vec, events, rows, phis, site):
+    """The error scan's profile LL of ``rows`` at phis (R, P)."""
+    warm = None if warm_vec is None else warm_vec[rows]
+    ll, _ = profile_loglik(kind, template_rows(tpl, rows), x[rows], mask[rows], exposure[rows], phis,
+                           cfg, warm, site=site, events=events_rows(events, rows))
+    return ll
+
+
+def _dense_window(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfig, warm_vec=None, events=None):
+    """The error scan's dense first window: both sides' first W steps
+    (``_dense_steps``) in one profile. Returns (S, 2W) bool, where the LL
+    drop exceeds the half-chi2 threshold (the low side's W steps, then the
+    high side's), or None at W 0."""
+    W = _dense_steps(cfg)
+    if W == 0:
+        return None
+    step = (2 * math.pi) / cfg.ph_shift_res
+    all_rows = torch.arange(x.shape[0], device=x.device)
+    ks_w = (1 + torch.arange(W, device=x.device)).to(_F64)
+    phis_dense = torch.cat([phi_best[:, None] - ks_w * step, phi_best[:, None] + ks_w * step], dim=1)
+    ll_dense = _scan_profile(kind, tpl, x, mask, exposure, cfg, warm_vec, events, all_rows, phis_dense,
+                             "toa_sweep_err_dense")
+    return (ll_max[:, None] - ll_dense) > CHI2_1SIG_HALF
+
+
 def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfig, warm_vec=None,
-                events=None):
+                events=None, dense_cross=None):
     """Likelihood-profile 1-sigma bounds: dense first window + chunked loop.
 
     The reported bound is (k*+1)*step + step/2 where k* is the first step
     whose LL drop exceeds the half-chi2 threshold; with no crossing within
     res/2 steps the bound saturates. Phase 1 evaluates both sides' first W
-    steps in one sweep; phase 2, the fallback loop seeded at k0 = W, runs
+    steps in one sweep (``_dense_window``; ``dense_cross`` is its result,
+    computed here when None); phase 2, the fallback loop seeded at k0 = W, runs
     chunks of ``err_chunk`` steps only for the segments that have not
     crossed yet, so every segment's bounds equal a lone run's. ``warm_vec``
     (S, D) seeds the readvaryparam Nelder-Mead at each segment's optimum;
@@ -730,27 +769,18 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
     step = (2 * math.pi) / cfg.ph_shift_res
     max_k = cfg.ph_shift_res // 2
     chunk = cfg.err_chunk
-    W = cfg.err_dense_window if cfg.err_dense_window >= 0 else DENSE_WINDOW_DEFAULT
-    W = min(W, max_k)
+    W = _dense_steps(cfg)
 
     def scan_profile(rows, phis, site):
-        warm = None if warm_vec is None else warm_vec[rows]
-        ll, _ = profile_loglik(kind, template_rows(tpl, rows), x[rows], mask[rows], exposure[rows], phis,
-                               cfg, warm, site=site, events=events_rows(events, rows))
-        return ll
+        return _scan_profile(kind, tpl, x, mask, exposure, cfg, warm_vec, events, rows, phis, site)
 
-    all_rows = torch.arange(S, device=dev)
     if W > 0:
-        ks_w = 1 + torch.arange(W, device=dev)
-        phis_dense = torch.cat(
-            [phi_best[:, None] - ks_w.to(_F64) * step, phi_best[:, None] + ks_w.to(_F64) * step], dim=1
-        )
-        ll_dense = scan_profile(all_rows, phis_dense, "toa_sweep_err_dense")
-        dense_cross = (ll_max[:, None] - ll_dense) > CHI2_1SIG_HALF
+        if dense_cross is None:
+            dense_cross = _dense_window(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm_vec, events)
 
         def seed(block):
             any_cross = torch.any(block, dim=-1)
-            k_star = ks_w[_first_true(block)]
+            k_star = _first_true(block) + 1
             kstop = torch.where(any_cross, k_star + 1, max_k + 1)
             return torch.full((S,), W, device=dev), any_cross, kstop
 
@@ -789,7 +819,104 @@ def _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg: ToAFitConfi
     return err_lo, err_hi, it_lo + it_hi
 
 
-def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitConfig) -> dict:
+def _brute_sweep(kind, tpl, x, mask, exposure, cfg: ToAFitConfig, brute_phis, events=None):
+    """The coarse global grid's profile LL (S, n_brute) at ``brute_phis``:
+    on K5's or K6's route one sweep of all n_brute phases (it keeps no (S,
+    P, N) temporaries, and rows are independent); the twin sweeps chunks of
+    brute_chunk phases."""
+    S = x.shape[0]
+    chunk = cfg.n_brute if _on_card(x) else max(1, min(cfg.brute_chunk, cfg.n_brute))
+    pad = (-cfg.n_brute) % chunk
+    phis_pad = torch.cat([brute_phis, brute_phis[-1:].expand(pad)]) if pad else brute_phis
+    return torch.cat([
+        profile_loglik(kind, tpl, x, mask, exposure, p.expand(S, chunk), cfg, site="toa_sweep_brute",
+                       events=events)[0]
+        for p in phis_pad.reshape(-1, chunk)
+    ], dim=1)[:, : cfg.n_brute]
+
+
+def _general_chain(kind, tpl, x, mask, exposure, cfg: ToAFitConfig, brute_phis):
+    """The readvaryparam fit's chain of K6 launches on rows x, mask (R, N),
+    exposure (R,), each row's values its own: the brute grid, the golden
+    refine on the best phase +- one grid step with the refit vector at its
+    optimum, and the error scan's dense window from that vector. Returns
+    (phi_best, ll_max, vec_best, dense_cross) (``_dense_window``)."""
+    grid_step = 2 * _phase_range(kind) / (cfg.n_brute - 1)
+    phi0 = brute_phis[torch.argmax(_brute_sweep(kind, tpl, x, mask, exposure, cfg, brute_phis), dim=1)]
+    phi_best, ll_max, vec_best = general_sweep.general_golden(kind, tpl, x, mask, exposure, phi0 - grid_step,
+                                                              phi0 + grid_step, cfg)
+    dense = _dense_window(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, vec_best)
+    return phi_best, ll_max, vec_best, dense
+
+
+def _row_groups(x, mask, cfg: ToAFitConfig, row_events=None) -> list | None:
+    """The row groups of a readvaryparam fit on a CUDA device
+    (``general_sweep.plan_row_groups`` from each row's masked events,
+    ``row_events`` or counted from ``mask``, and the card's SMs, at most one
+    group a stream priority level); None for one group: the batch as it
+    stands, and every fit off a CUDA device, which has no streams."""
+    if x.device.type != "cuda" or x.shape[0] < 2:
+        return None
+    least, greatest = torch.cuda.Stream.priority_range()
+    counts = mask.sum(dim=1).cpu().numpy() if row_events is None else row_events
+    groups = general_sweep.plan_row_groups(
+        counts, torch.cuda.get_device_properties(x.device).multi_processor_count, cfg.n_brute,
+        2 * _dense_steps(cfg), max_groups=min(general_sweep.MAX_ROW_GROUPS, least - greatest + 1))
+    return groups if len(groups) > 1 else None
+
+
+def _group_stream(device, g: int):
+    """Row group g's stream on ``device``, at the g-th highest priority:
+    one a (device, group), kept for every fit, so the memory a group's
+    chain frees stays in its stream's pool of the caching allocator for the
+    next fit's chain."""
+    key = (torch.device(device), g)
+    with _STATE_LOCK:
+        stream = _GROUP_STREAMS.get(key)
+        if stream is None:
+            greatest = torch.cuda.Stream.priority_range()[1]
+            stream = _GROUP_STREAMS[key] = torch.cuda.Stream(device=device, priority=greatest + g)
+    return stream
+
+
+def _general_chains(kind, tpl, x, mask, exposure, cfg: ToAFitConfig, brute_phis, groups=None):
+    """``_general_chain`` on each row group of ``groups`` (lists of row
+    indices; None: one group, the batch as it stands, on the current
+    stream), each group's chain inside a ``crimp.fit.group`` range. On a
+    card group g's chain runs on a stream of its own at the g-th highest
+    priority, so one group's golden refine shares the SMs with another's
+    sweeps; the host issues every chain before it waits on the card, the
+    current stream then waits on each. Returns ``_general_chain``'s
+    columns in the batch's row order, each row's bits as in one group."""
+    obs.counter_add("toa_general_groups", 1 if groups is None else len(groups))
+    if groups is None:
+        with obs.profiler_range(spans.FIT_GROUP):
+            return _general_chain(kind, tpl, x, mask, exposure, cfg, brute_phis)
+    order = np.concatenate(groups)
+    # the rows of each group and the inverse order, to the card in one copy before any chain
+    idx = torch.as_tensor(np.stack([order, np.argsort(order)]), device=x.device)
+    card = x.device.type == "cuda"
+    main = torch.cuda.current_stream(x.device) if card else None
+    chains, first = [], 0
+    for g, rows in enumerate(groups):
+        sel = idx[0, first:first + len(rows)]
+        first += len(rows)
+        stream = _group_stream(x.device, g) if card else None
+        with torch.cuda.stream(stream) if card else contextlib.nullcontext(), obs.profiler_range(spans.FIT_GROUP):
+            if card:
+                stream.wait_stream(main)
+            chains.append((stream, _general_chain(kind, tpl, x[sel], mask[sel], exposure[sel], cfg, brute_phis)))
+    for stream, out in chains:
+        if stream is not None:
+            main.wait_stream(stream)
+            for t in out:
+                if t is not None:
+                    t.record_stream(main)
+    return tuple(None if parts[0] is None else torch.cat(parts)[idx[1]]
+                 for parts in zip(*(out for _, out in chains)))
+
+
+def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitConfig, row_events=None) -> dict:
     """Full ToA fit of S padded segments at once: x, mask (S, N), exposure
     (S,), tensors on one device (the JAX package's vmapped ``fit_segment``).
     ``tpl`` is one shared template, or one per row: leaves with a leading
@@ -805,16 +932,17 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     golden-section refine with the refit vector at its optimum
     (``general_sweep.general_golden``; with ``refine_mode="grid"`` each
     refine round and the nuisance solve), the dense error window and each
-    fallback pass."""
+    fallback pass. In golden mode the first three are a chain a row group
+    (``_general_chains``, the groups ``_row_groups`` plans from
+    ``row_events``, each row's masked events on the host, counted from
+    ``mask`` when None); the fallback passes then take the whole batch."""
     if cfg.free_idx and tpl.norm.dim() > 0:
         raise ValueError("per-row templates take the fixed-shape fit (no cfg.free_idx)")
     half_range = _phase_range(kind)
     S = x.shape[0]
     dev = x.device
 
-    # 1) coarse global brute grid: on K5's route one sweep of all n_brute
-    #    phases (it keeps no (S, P, N) temporaries, and rows are independent);
-    #    the twin sweeps chunks of brute_chunk phases
+    # 1) coarse global brute grid
     brute_phis = torch.as_tensor(
         np.linspace(-half_range, half_range, cfg.n_brute), dtype=_F64, device=dev
     )
@@ -824,19 +952,21 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     if card and not cfg.free_idx:
         with obs.profiler_range(spans.FIT_EVENTS):
             events = sweep_events(kind, tpl, x, cfg)
-    chunk = cfg.n_brute if card else max(1, min(cfg.brute_chunk, cfg.n_brute))
-    pad = (-cfg.n_brute) % chunk
-    phis_pad = torch.cat([brute_phis, brute_phis[-1:].expand(pad)]) if pad else brute_phis
-    ll_brute = torch.cat([
-        profile_loglik(kind, tpl, x, mask, exposure, p.expand(S, chunk), cfg, site="toa_sweep_brute",
-                       events=events)[0]
-        for p in phis_pad.reshape(-1, chunk)
-    ], dim=1)[:, : cfg.n_brute]
-    i_best = torch.argmax(ll_brute, dim=1)
-    phi0 = brute_phis[i_best]
-    grid_step = 2 * half_range / (cfg.n_brute - 1)
+    dense_cross = None
+    if cfg.free_idx and cfg.refine_mode == "golden":
+        # 1-2) the brute grid, the refine with the refit vector at its optimum
+        #      (one K6 launch on the card, golden_section over the twin on the
+        #      CPU) and the error scan's dense window, a chain a row group
+        phi_best, ll_max, vec_best, dense_cross = _general_chains(
+            kind, tpl, x, mask, exposure, cfg, brute_phis, _row_groups(x, mask, cfg, row_events))
+    else:
+        ll_brute = _brute_sweep(kind, tpl, x, mask, exposure, cfg, brute_phis, events)
+        i_best = torch.argmax(ll_brute, dim=1)
+        phi0 = brute_phis[i_best]
+        grid_step = 2 * half_range / (cfg.n_brute - 1)
 
-    # 2) refine to the profile-likelihood optimum
+    # 2) refine to the profile-likelihood optimum (a readvaryparam golden
+    #    refine ran in its chain)
     if cfg.refine_mode == "grid":
         if cfg.refine_grid < 3 or cfg.refine_grid % 2 == 0:
             raise ValueError(
@@ -860,12 +990,7 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
         # launch on the card, golden_section over the twin on the CPU
         phi_best, ll_max, a_best, b_best = golden_refine(kind, tpl, x, mask, exposure, phi0 - grid_step,
                                                          phi0 + grid_step, cfg, events)
-    elif cfg.refine_mode == "golden":
-        # the refine and the refit vector at its optimum: one K6 launch on
-        # the card, golden_section over the twin on the CPU
-        phi_best, ll_max, vec_best = general_sweep.general_golden(kind, tpl, x, mask, exposure, phi0 - grid_step,
-                                                                  phi0 + grid_step, cfg)
-    else:
+    elif cfg.refine_mode != "golden":
         raise ValueError(
             f"unknown refine_mode {cfg.refine_mode!r} (expected 'golden' or 'grid')"
         )
@@ -893,7 +1018,7 @@ def fit_segment(kind: str, tpl: ProfileParams, x, mask, exposure, cfg: ToAFitCon
     warm = vec_best if cfg.free_idx else None
     with obs.profiler_range(spans.FIT_ERROR_SCAN):
         err_lo, err_hi, scan_iters = _error_scan(kind, tpl, x, mask, exposure, phi_best, ll_max, cfg, warm,
-                                                 events)
+                                                 events, dense_cross)
 
     # 5) binned-profile goodness of fit (general mode: the model at the
     #    refit shape, ampShift folded into the template)
@@ -928,10 +1053,12 @@ def fit_toas_batch(kind: str, tpl: ProfileParams, phases, masks, exposures,
     with obs.span(spans.FIT), torch.no_grad():
         with obs.profiler_range(spans.FIT_TO_CARD):
             x = torch.as_tensor(phases, dtype=_F64).to(dev)
+            # each row's masked events, for the readvaryparam fit's row groups
+            row_events = np.count_nonzero(np.asarray(masks), axis=1) if cfg.free_idx else None
             mask = torch.as_tensor(masks, dtype=torch.bool).to(dev)
             exposure = torch.as_tensor(exposures, dtype=_F64).to(dev)
             tpl = tpl.to(dev)
-        return fit_segment(kind, tpl, x, mask, exposure, cfg)
+        return fit_segment(kind, tpl, x, mask, exposure, cfg, row_events)
 
 
 def resolve_runtime_cfg(cfg: ToAFitConfig, n_segments: int = 1, n_events: int = 1, device=None) -> ToAFitConfig:

@@ -4,6 +4,8 @@ its source.
 
     python -m crimp_tpu_torch.utils.k6_ab [--parent SRC.cu] [--source SRC.cu] [--out FILE] [--reps N]
                                           [--probe] [--stage-u U1,U2,U4 ...]
+    python -m crimp_tpu_torch.utils.k6_ab --groups [--sets N] [--reps N] [--out FILE]
+    python -m crimp_tpu_torch.utils.k6_ab --plans [--reps N] [--out FILE]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit. It builds K6's source with ``z2_grid.NVCC_FLAGS`` and, with
@@ -76,6 +78,27 @@ symbols the library exports. It prints:
   of a block's cycles, the cycles a round, pass and walk, and the share of
   the event loop's cycles a walk the stage takes off.
 
+``--groups`` runs alone instead (no build of its own, no parent): the
+readvaryparam fit (``toafit.fit_segment`` on the card, the defaults, the
+template's 13 ``vary`` parameters free) on the campaign's rows (the
+interval table's ``Events`` column, 5 136 to 14 897 events, from the
+surrogate, ``campaign_operands``) of ``--sets`` event sets, in its row
+groups (``toafit._row_groups``' plan) and in one group, in turns one /
+grouped / grouped / one ``--reps`` times a set: the wall ms of a fit with
+the card synchronized, the groups chosen and the model's ms of both
+schedules (``general_sweep.schedule_ms``), the card's SMs and stream
+priority range, and whether every returned column is the one-group fit's
+bit for bit.
+
+``--plans`` runs alone instead: the same fit at each G from 1 to
+``general_sweep.MAX_ROW_GROUPS`` pinned (the rows longest first, cut as
+``plan_row_groups`` cuts them; G 1 the batch as it stands), in turns 1..4,
+4..1 ``--reps`` times, on three row sets: the campaign's rows (seed 7),
+phase 14's 84 rows of 10 000 events, and those rows taken in turn to 132
+rows (one an SM). For each set: the G the plan takes, the wall ms of each
+G (median), the model's ms of each, and whether every G's columns are G
+1's bit for bit.
+
 ``--out`` writes everything as JSON.
 """
 
@@ -83,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -94,6 +118,7 @@ import numpy as np
 import torch
 
 from crimp_tpu_torch.io import template as template_io
+from crimp_tpu_torch.io.table import read_columns
 from crimp_tpu_torch.models import profiles, timing
 from crimp_tpu_torch.obs import costmodel
 from crimp_tpu_torch.ops import anchored, general_sweep, optimize, toafit, z2_grid
@@ -608,6 +633,135 @@ def probe_part(libs: dict, kind, tpl, cfg, x, mask, exposure, lo, hi, reps: int)
     return out
 
 
+def campaign_operands(dev, seed: int):
+    """The campaign's rows: the surrogate (``seed``) with more events an
+    interval than its table's ``Events`` column gives, each interval's
+    folded phases cut to that count, padded on the card, with the
+    exposures and each row's events (host)."""
+    intervals = read_columns(INTERVALS)
+    counts = np.rint(intervals["Events"]).astype(int)
+    times, _ = surrogate.build_surrogate(PAR, INTERVALS, TEMPLATE, events_per_toa=int(counts.max()) + 2000, seed=seed)
+    segs = surrogate.slice_intervals(times, intervals["ToA_tstart"], intervals["ToA_tend"])
+    seg_phases, _ = anchored.fold_segments(timing.resolve(PAR), segs, device=dev)
+    if any(len(p) < n for p, n in zip(seg_phases, counts)):
+        raise RuntimeError("the surrogate drew fewer events than an interval's count")
+    phases, masks = toafit.pad_segments([p[:n] for p, n in zip(seg_phases, counts)])
+    return (torch.as_tensor(phases, device=dev), torch.as_tensor(masks, device=dev),
+            torch.as_tensor(intervals["ToA_exposure"].astype(float), device=dev), masks.sum(axis=1))
+
+
+@contextlib.contextmanager
+def pinned(groups):
+    """The readvaryparam fit in ``groups`` (None: one group)."""
+    planned = toafit._row_groups
+    toafit._row_groups = lambda *args, **kwargs: groups
+    try:
+        yield
+    finally:
+        toafit._row_groups = planned
+
+
+def groups_part(sets: int, reps: int) -> dict:
+    """The readvaryparam fit in its row groups against one group (``--groups``)."""
+    dev = torch.device("cuda")
+    tpl_dict = template_io.read_template(TEMPLATE)
+    kind, tpl = profiles.from_template(tpl_dict)
+    idx, lo, hi, n_free = toafit.free_param_spec(kind, tpl_dict)
+    cfg = toafit.ToAFitConfig(kind=kind, free_idx=idx, free_lo=lo, free_hi=hi, n_free=n_free)
+    tpl = tpl.to(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    res = {"sms": n_sm, "priority_range": list(torch.cuda.Stream.priority_range()), "sets": []}
+    print(f"{n_sm} SMs, stream priorities {res['priority_range']}", flush=True)
+    for k in range(sets):
+        x, mask, exposure, row_events = campaign_operands(dev, 7 + k)
+
+        def fit():
+            out = toafit.fit_segment(kind, tpl, x, mask, exposure, cfg, row_events)
+            torch.cuda.synchronize()
+            return out
+
+        def wall(grouped: bool) -> float:
+            t0 = time.perf_counter()
+            if grouped:
+                fit()
+            else:
+                with pinned(None):
+                    fit()
+            return 1e3 * (time.perf_counter() - t0)
+
+        groups = toafit._row_groups(x, mask, cfg, row_events) or [np.arange(x.shape[0])]
+        grouped = fit()
+        with pinned(None):
+            one = fit()
+        ms = {"one": [], "grouped": []}
+        for _ in range(reps):
+            for arm in ("one", "grouped", "grouped", "one"):
+                ms[arm].append(wall(arm == "grouped"))
+        model = {"one": general_sweep.schedule_ms([row_events.tolist()], n_sm),
+                 "grouped": general_sweep.schedule_ms([row_events[g].tolist() for g in groups], n_sm)}
+        same = {key: bool(torch.equal(torch.nan_to_num(grouped[key]), torch.nan_to_num(one[key]))
+                          and torch.equal(torch.isnan(grouped[key]), torch.isnan(one[key])))
+                for key in one}
+        row = {"seed": 7 + k, "groups": [len(g) for g in groups], "group_events": [int(row_events[g].sum()) for g in groups],
+               "ms": ms, "model_ms": model, "bitwise": same,
+               "loop_iters": int(one["errScanLoopIters"].sum())}
+        res["sets"].append(row)
+        print(f"set {k}: G {len(groups)} {row['groups']}; one group "
+              + " / ".join(f"{v:.1f}" for v in ms["one"]) + " ms, grouped "
+              + " / ".join(f"{v:.1f}" for v in ms["grouped"])
+              + f" ms (model {model['one']:.1f} / {model['grouped']:.1f}); bitwise every column: "
+              + str(all(same.values())) + ("" if all(same.values()) else f" {same}"), flush=True)
+    return res
+
+
+def plans_part(reps: int) -> dict:
+    """The readvaryparam fit at every pinned G on three row sets (``--plans``)."""
+    dev = torch.device("cuda")
+    tpl_dict = template_io.read_template(TEMPLATE)
+    kind, tpl = profiles.from_template(tpl_dict)
+    idx, lo, hi, n_free = toafit.free_param_spec(kind, tpl_dict)
+    cfg = toafit.ToAFitConfig(kind=kind, free_idx=idx, free_lo=lo, free_hi=hi, n_free=n_free)
+    tpl = tpl.to(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    x84, mask84, exposure84 = north_star_operands(dev)
+    tiled = torch.arange(132, device=dev) % x84.shape[0]
+    sets = {"campaign": campaign_operands(dev, 7),
+            "uniform 84": (x84, mask84, exposure84, mask84.sum(dim=1).cpu().numpy()),
+            "uniform 132": (x84[tiled], mask84[tiled], exposure84[tiled], mask84[tiled].sum(dim=1).cpu().numpy())}
+    res = {"sms": n_sm, "priority_range": list(torch.cuda.Stream.priority_range()), "sets": {}}
+    gs = range(1, general_sweep.MAX_ROW_GROUPS + 1)
+    for label, (x, mask, exposure, row_events) in sets.items():
+        order = np.argsort(-row_events, kind="stable")
+        arms = {g: None if g == 1 else np.array_split(order, g) for g in gs}
+
+        def fit(g):
+            with pinned(arms[g]):
+                out = toafit.fit_segment(kind, tpl, x, mask, exposure, cfg, row_events)
+            torch.cuda.synchronize()
+            return out
+
+        planned = toafit._row_groups(x, mask, cfg, row_events)
+        first = {g: fit(g) for g in gs}
+        same = {g: all(torch.equal(torch.nan_to_num(first[g][k]), torch.nan_to_num(first[1][k]))
+                       and torch.equal(torch.isnan(first[g][k]), torch.isnan(first[1][k])) for k in first[1])
+                for g in gs}
+        ms = {g: [] for g in gs}
+        for _ in range(reps):
+            for g in [*gs, *reversed(gs)]:
+                t0 = time.perf_counter()
+                fit(g)
+                ms[g].append(1e3 * (time.perf_counter() - t0))
+        model = {g: general_sweep.schedule_ms([row_events.tolist()] if arms[g] is None
+                                              else [row_events[a].tolist() for a in arms[g]], n_sm) for g in gs}
+        row = {"rows": int(x.shape[0]), "plan": 1 if planned is None else len(planned), "ms": ms,
+               "median_ms": {g: float(np.median(v)) for g, v in ms.items()}, "model_ms": model, "bitwise": same}
+        res["sets"][label] = row
+        print(f"{label} ({row['rows']} rows): plan G {row['plan']}; "
+              + "; ".join(f"G {g} {row['median_ms'][g]:.1f} ms (model {model[g]:.1f})" for g in gs)
+              + f"; bitwise G 1: {same}", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", default=None, help="an earlier toafit_general.cu to time beside K6")
@@ -617,6 +771,11 @@ def main(argv=None) -> int:
     parser.add_argument("--probe", action="store_true", help="attribute a golden round with clock64() stamps")
     parser.add_argument("--stage-u", nargs="*", default=[], metavar="U1,U2,U4",
                         help="time the staged golden loop at these U (events a thread a step at 1, 2, 4 vertices)")
+    parser.add_argument("--groups", action="store_true",
+                        help="only the readvaryparam fit in its row groups against one group")
+    parser.add_argument("--sets", type=int, default=4, help="event sets of --groups")
+    parser.add_argument("--plans", action="store_true",
+                        help="only the readvaryparam fit at every pinned G on three row sets")
     args = parser.parse_args(argv)
     stage_us = [tuple(int(v) for v in u.split(",")) for u in args.stage_u]
     if not torch.cuda.is_available():
@@ -625,6 +784,17 @@ def main(argv=None) -> int:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
     res = {"card": card, "time": time.time()}
+    if args.groups or args.plans:
+        if args.groups:
+            res["groups"] = groups_part(args.sets, args.reps)
+        if args.plans:
+            res["plans"] = plans_part(args.reps)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(res, fh, indent=1)
+        rows = [*res.get("groups", {}).get("sets", []), *res.get("plans", {}).get("sets", {}).values()]
+        return 0 if all(all(row["bitwise"].values()) for row in rows) else 1
     src = args.source or str(z2_grid.SOURCES["toafit_general"])
     sources = {"new": src, "new_count": derived("new", src, counting_source)}
     if args.parent:

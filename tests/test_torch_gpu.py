@@ -57,7 +57,10 @@ row give the chain's bits for every family, and a stage the entry cannot
 take raises KernelError; so do K6's Nelder-Mead's at G 2 and 4: the
 planned stage gives n_stage 0's bits in all five outputs on the north
 star's rows at 128 and 64 phases and on rows longer than the stage, and
-von Mises plans none. Under torch.profiler, a -rv fit at the north-star
+von Mises plans none. The readvaryparam fit in row groups, each group's chain of
+K6 launches on a stream of its own, must give the one-group fit's bits in
+every column, the groups sorted or permuted, and the campaign's 84 rows
+must plan two groups or more on a card of 100 SMs or more. Under torch.profiler, a -rv fit at the north-star
 rows must show one range a K6 launch, each inside the fit's span, and none
 on the device's timeline; a campaign pass's device idle must lie inside
 step spans for at least 85% of it. On two or more cards, the
@@ -1414,6 +1417,52 @@ def _profiled(fn):
         row = (ev.name(), int(ev.start_ns()), int(ev.start_ns()) + int(ev.duration_ns()))
         (device if ev.device_type() == DeviceType.CUDA else host).append(row)
     return host, device
+
+
+@pytest.mark.gpu
+class TestRowGroupsOnCard:
+    """The readvaryparam fit's row groups on the card: each group's chain of
+    K6 launches on a stream of its own, every column the one-group fit's."""
+
+    @staticmethod
+    def _rows(dev):
+        tpl, _, _, _, _, cfg = _rv_operands("fourier", dev)
+        rng = np.random.RandomState(61)
+        counts = [1500, 400, 1100, 1500, 700, 250, 1300, 900, 600]
+        x = np.zeros((len(counts), max(counts)))
+        mask = np.zeros(x.shape, dtype=bool)
+        for r, n in enumerate(counts):
+            x[r, :n] = rng.uniform(0, 1, n)
+            mask[r, :n] = True
+        cfg = cfg._replace(n_brute=32, refine_iters=6, nm_iters=40, ph_shift_res=200, err_chunk=4,
+                           err_dense_window=4)
+        return tpl.to("cpu"), x, mask, np.array(counts, dtype=float) / 10.0, cfg
+
+    @pytest.mark.parametrize("plan", [[[0, 3, 6], [2, 7, 4], [8, 1, 5]], [[5], [1, 8, 4, 7], [0, 2, 3, 6]]],
+                             ids=["sorted", "permuted"])
+    def test_grouped_fit_is_the_one_group_fit(self, cuda_device, monkeypatch, plan):
+        tpl, x, mask, exposure, cfg = self._rows(cuda_device)
+        monkeypatch.setattr(toafit, "_row_groups", lambda *args, **kwargs: None)
+        one = toafit.fit_toas_batch("fourier", tpl, x, mask, exposure, cfg, device=cuda_device)
+        monkeypatch.setattr(toafit, "_row_groups", lambda *args, **kwargs: [np.asarray(g) for g in plan])
+        grouped = toafit.fit_toas_batch("fourier", tpl, x, mask, exposure, cfg, device=cuda_device)
+        for key in one:
+            assert torch.equal(torch.nan_to_num(grouped[key]), torch.nan_to_num(one[key])), key
+        streams = [toafit._GROUP_STREAMS[(torch.device(cuda_device.type, torch.cuda.current_device()), g)]
+                   for g in range(len(plan))]
+        assert [s.priority for s in streams] == sorted(s.priority for s in streams)
+        assert len({s.cuda_stream for s in streams}) == len(plan)
+
+    def test_the_campaign_rows_take_groups(self, cuda_device):
+        lines = (DATA / "timIntToAs_1e2259.txt").read_text().splitlines()
+        counts = np.array([int(float(line.split()[5])) for line in lines[1:]])
+        x = torch.zeros((counts.size, 8), dtype=torch.float64, device=cuda_device)
+        cfg = _bundled_rv_fit()[2]
+        groups = toafit._row_groups(x, x > 0, cfg, row_events=counts)
+        if torch.cuda.get_device_properties(cuda_device).multi_processor_count >= 100:
+            assert groups is not None and len(groups) >= 2
+        if groups is not None:
+            assert np.concatenate(groups).tolist() == np.argsort(-counts, kind="stable").tolist()
 
 
 @pytest.mark.gpu
